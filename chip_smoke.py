@@ -12,7 +12,14 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
 3. the main path at real size: FlatIndex over a 1M x 768 embedding-like
    corpus in all four precisions (insert, delete, filter, search_batch at
    B = 1000, k = 10), checked against float64 ground truth and the port's
-   own f32 scan, with QPS, peak memory and each kernel's launch count.
+   own f32 scan, with QPS, peak memory and each kernel's launch count;
+4. IVF-PQ at SIFT1M scale, the repo's IVF benchmark setting (IVFADC of
+   Jegou et al., FAISS IVF4096,PQ16): IvfIndex over 1M x 128 sift_like rows,
+   4096 cells, residual PQ m = 16 with OPQ, add, delete, filter, and
+   search_batch at B = 1000 in the PQ-probe (n_probe = 16, fetch = 512)
+   and flat modes against the port's exact scan; then a PQCodec ADC scan
+   of the corpus (adc_topk) against its gather mode, and a FlatIndex search
+   at k = 300 (above l2_topk's 256) against float64.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record, and the one before that the card's name and power
@@ -21,6 +28,7 @@ limit. Without a CUDA device it prints no result and exits 1.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -39,9 +47,22 @@ CORPUS = 1_000_000      # FlatIndex corpus rows (+ B query rows)
 # kernel vs plain: a sum in another order errs relative to the size of its
 # terms, so a distance's tolerance is ATOL + RTOL * (|value| + scale), with
 # scale = ||q||^2 + max ||x||^2 for l2_topk (a near-zero distance is the
-# difference of terms that large) and 0 for the block scans
+# difference of terms that large), the largest LUT sum plus the largest
+# |corr| for adc_probe (the residual correction cancels ||q||^2 out of the
+# LUT sum), and 0 for the block scans and adc_topk
 RTOL, ATOL = 1e-5, 1e-4
 LIVE = 1e37             # below this a value belongs to a real row
+# phase 4: the IVF-PQ benchmark setting (scripts/bench_sift.py:66, :195-201)
+IVF_N = 1_000_000
+IVF_DIM = 128
+IVF_CELLS = 4096
+PQ_M = 16
+PQ_KSUB = 256
+N_PROBE = 16
+FETCH = 512
+ADC_B = 128             # adc_topk's main-path shape: B queries, k = 100
+ADC_K = 100
+RECALL_FLOOR = 0.95     # the JAX package recorded 0.977 here
 
 
 def log(*parts) -> None:
@@ -67,10 +88,15 @@ def check_topk(name, got_v, got_i, want_v, want_i, group: int,
                scale=0.0) -> float:
     """Values within tolerance, equal sentinels, ids equal wherever a value
     is apart from its neighbours (within groups of ``group`` ascending
-    entries). ``scale``: per-row term size, [rows] or scalar. Returns the
+    entries). A top-k list's want may carry one more column than got: the
+    (k+1)-th value, so that a tie across the list's end is not read as a
+    difference. ``scale``: per-row term size, [rows] or scalar. Returns the
     max abs error over live values."""
     gv, wv = got_v.cpu().double().numpy(), want_v.cpu().double().numpy()
-    gv, wv = gv.reshape(-1, group), wv.reshape(-1, group)
+    gv = gv.reshape(-1, group)
+    wv = wv.reshape(gv.shape[0], -1)
+    after = wv[:, group:]              # the (k+1)-th value, or nothing
+    wv = wv[:, :group]
     scale = np.broadcast_to(np.asarray(scale, np.float64).reshape(-1, 1),
                             (wv.shape[0], 1))
     live = wv < LIVE
@@ -86,11 +112,13 @@ def check_topk(name, got_v, got_i, want_v, want_i, group: int,
     if got_i is None:
         return float(err.max(initial=0.0))
     gi = got_i.cpu().numpy().reshape(-1, group)
-    wi = want_i.cpu().numpy().reshape(-1, group)
-    gap = np.abs(np.diff(wv, axis=1))
+    wi = want_i.cpu().numpy().reshape(gi.shape[0], -1)[:, :group]
+    gap = np.abs(np.diff(np.concatenate([wv, after], axis=1), axis=1))
     apart = np.ones(wv.shape, bool)
-    apart[:, 1:] &= gap > tol[:, 1:]
-    apart[:, :-1] &= gap > tol[:, :-1]
+    apart[:, 1:] &= gap[:, :group - 1] > tol[:, 1:]
+    apart[:, :-1] &= gap[:, :group - 1] > tol[:, :-1]
+    if after.shape[1]:
+        apart[:, -1] &= gap[:, -1] > tol[:, -1]
     if not np.array_equal(gi[apart], wi[apart]):
         bad = int((gi[apart] != wi[apart]).sum())
         raise AssertionError(f"{name}: {bad} ids differ between apart values")
@@ -103,6 +131,9 @@ def phase_kernels(torch, dev, kernels):
         block_min_plain, block_min_scan)
     from vector_db_tpu_torch.ops.cuda.block_topm import (
         block_topm_plain, block_topm_scan)
+    from vector_db_tpu_torch.ops.cuda.adc_probe import (
+        adc_probe_plain, adc_probe_scores)
+    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk, adc_topk_plain
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -122,7 +153,7 @@ def phase_kernels(torch, dev, kernels):
         x_sq = (x * x).sum(-1)
         tab = x.to(dtype)
         got = l2_topk(q, tab, valid, k, x_sq=x_sq)
-        want = l2_topk_plain(q, tab, valid, k, x_sq)
+        want = l2_topk_plain(q, tab, valid, k + 1, x_sq)
         return check_topk(f"l2_topk {dtype} n={n} b={b} k={k}", *got, *want,
                           group=k, scale=terms(q, x_sq))
 
@@ -146,7 +177,47 @@ def phase_kernels(torch, dev, kernels):
     def terms(q, x_sq):
         return ((q * q).sum(-1) + x_sq.max()).cpu().numpy()
 
-    err = {"l2_topk": 0.0, "block_topm": 0.0, "block_min": 0.0}
+    def adc_probe_case(b, p, m, ksub):
+        lut = randn(b, m, ksub) ** 2
+        codes = torch.randint(0, ksub, (b, p, m), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        codes[:, 1] = codes[:, 0]
+        corr = randn(b, p)
+        valid = torch.rand(b, p, generator=gen, device=dev) > 0.2
+        got = adc_probe_scores(lut, codes, corr, valid)
+        want = adc_probe_plain(lut, codes, corr, valid)
+        return check_topk(f"adc_probe b={b} p={p} m={m} ksub={ksub}", got,
+                          None, want, None, group=p,
+                          scale=adc_terms(lut, corr))
+
+    def adc_topk_case(n, m, ksub, b, k, dtype, valid_rows=None):
+        lut = randn(b, m, ksub) ** 2
+        codes = torch.randint(0, ksub, (n, m), generator=gen, device=dev,
+                              dtype=dtype)
+        codes[1:6] = codes[0]
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        valid[::9] = False
+        if valid_rows is not None:
+            valid[valid_rows:] = False
+        got = adc_topk(lut, codes, valid, k)
+        want = adc_topk_plain(lut, codes, valid, k + 1)
+        return check_topk(f"adc_topk {dtype} n={n} m={m} ksub={ksub} b={b} "
+                          f"k={k}", *got, *want, group=k)
+
+    err = {"l2_topk": 0.0, "block_topm": 0.0, "block_min": 0.0,
+           "adc_probe": 0.0, "adc_topk": 0.0}
+    for m in (4, 8, 16):
+        for ksub in (16, 256):
+            for b, p in ((1, 70), (7, 1000 + 3)):
+                err["adc_probe"] = max(err["adc_probe"],
+                                       adc_probe_case(b, p, m, ksub))
+            for dtype in (torch.uint8, torch.int32):
+                for n, b, k, vr in ((1000 + 7, 1, 10, None),
+                                    (5000 + 70, 9, 100, None),
+                                    (300, 3, 256, 200)):  # k > valid rows
+                    err["adc_topk"] = max(err["adc_topk"], adc_topk_case(
+                        n, m, ksub, b, k, dtype, valid_rows=vr))
+    log(f"phase 2 adc edge shapes ok: max abs err {err}")
     for dtype in (torch.float32, torch.bfloat16):
         for n, d, b, k, vr in ((1000, 64, 1, 10, None),
                                (5000 + 70, 200, 70, 100, None),
@@ -171,7 +242,7 @@ def phase_kernels(torch, dev, kernels):
         valid = torch.ones(N_MAIN, dtype=torch.bool, device=dev)
         valid[::97] = False
         got = l2_topk(q, tab, valid, K, x_sq=x_sq)
-        want = l2_topk_plain(q, tab, valid, K, x_sq)
+        want = l2_topk_plain(q, tab, valid, K + 1, x_sq)
         e = check_topk(f"l2_topk {label} main", *got, *want, group=K,
                        scale=terms(q, x_sq))
         err["l2_topk"] = max(err["l2_topk"], e)
@@ -206,6 +277,24 @@ def phase_kernels(torch, dev, kernels):
         log(f"{name} bf16 table N={N_MAIN} ds={DS} B={B}"
             f"{' m=%d' % M_2P if name == 'block_topm' else ''}: "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # adc_topk at the main path's shape (PQCodec.adc_search's int32 codes)
+    lut = randn(ADC_B, PQ_M, PQ_KSUB) ** 2
+    codes = torch.randint(0, PQ_KSUB, (N_MAIN, PQ_M), generator=gen,
+                          device=dev, dtype=torch.int32)
+    valid = torch.ones(N_MAIN, dtype=torch.bool, device=dev)
+    valid[::97] = False
+    got = adc_topk(lut, codes, valid, ADC_K)
+    want = adc_topk_plain(lut, codes, valid, ADC_K + 1)
+    e = check_topk("adc_topk main", *got, *want, group=ADC_K)
+    err["adc_topk"] = max(err["adc_topk"], e)
+    ms = cuda_ms(torch, lambda: adc_topk(lut, codes, valid, ADC_K))
+    plain_ms = cuda_ms(torch, lambda: adc_topk_plain(lut, codes, valid,
+                                                     ADC_K))
+    kernels["adc_topk"].update(ms=ms, plain_ms=plain_ms)
+    log(f"adc_topk int32 codes N={N_MAIN} m={PQ_M} ksub={PQ_KSUB} B={ADC_B} "
+        f"k={ADC_K}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"max abs err {e}")
+    del lut, codes, valid, got, want
     for name in err:
         kernels[name]["max_abs_err"] = err[name]
     log(f"phase 2 ok: kernels agree with their plain versions, "
@@ -295,27 +384,14 @@ def phase_main_path(torch, kernels):
     # f32 against float64 ground truth over the live corpus
     live = np.ones(CORPUS, bool)
     live[deleted] = False
-    q64 = queries[:8].astype(np.float64)
-    d64 = np.empty((8, CORPUS))
-    for s in range(0, CORPUS, 65536):
-        xc = x[s:s + 65536].astype(np.float64)
-        d64[:, s:s + 65536] = ((xc * xc).sum(1)[None, :] - 2 * q64 @ xc.T
-                               + (q64 * q64).sum(1)[:, None])
-    d64 = np.sqrt(np.maximum(np.where(live[None, :], d64, np.inf), 0))
-    kth = np.sort(d64, axis=1)[:, K - 1]
-    got = np.take_along_axis(d64, results["f32"][1][:8], axis=1)
-    if not (got <= (1 + 1e-5) * kth[:, None]).all():
-        raise AssertionError("f32: a returned id lies beyond the float64 "
-                             "k-th distance")
+    float64_bound("f32", x, queries[:8], results["f32"][1][:8], K, live)
     log("f32 exact against float64 ground truth on 8 queries: ok")
 
     truth = results["f32"][1]
     floors = {"bf16": 0.99, "blocksel": 0.999, "blocksel2p": 0.999}
     recalls = {}
     for p, floor in floors.items():
-        hits = sum(len(set(a) & set(b)) for a, b in
-                   zip(results[p][1].tolist(), truth.tolist()))
-        recalls[p] = hits / truth.size
+        recalls[p] = recall_at(results[p][1], truth)
         if recalls[p] < floor:
             raise AssertionError(f"{p}: recall@{K} {recalls[p]} < {floor}")
     log(f"recall@{K} against the port's f32 scan: {recalls}")
@@ -327,6 +403,207 @@ def phase_main_path(torch, kernels):
         if c <= 0:
             raise AssertionError(f"{name}: no launch on the main path")
         kernels[name]["launches"] = c
+
+
+def adc_terms(lut, corr):
+    """Per query: the largest LUT sum plus the largest |corr|."""
+    return (lut.amax(-1).sum(-1) + corr.abs().amax(-1)).cpu().numpy()
+
+
+def recall_at(got, truth) -> float:
+    hits = sum(len(set(a) & set(b)) for a, b in
+               zip(got.tolist(), truth.tolist()))
+    return hits / truth.size
+
+
+def float64_bound(name, x, queries, ids, k, live=None) -> None:
+    """Every returned id lies within (1 + 1e-5) of the float64 k-th
+    distance over the live rows of x."""
+    q64 = queries.astype(np.float64)
+    d64 = np.empty((q64.shape[0], x.shape[0]))
+    for s in range(0, x.shape[0], 65536):
+        xc = x[s:s + 65536].astype(np.float64)
+        d64[:, s:s + 65536] = ((xc * xc).sum(1)[None, :] - 2 * q64 @ xc.T
+                               + (q64 * q64).sum(1)[:, None])
+    if live is not None:
+        d64 = np.where(live[None, :], d64, np.inf)
+    d64 = np.sqrt(np.maximum(d64, 0))
+    kth = np.sort(d64, axis=1)[:, k - 1]
+    got = np.take_along_axis(d64, ids, axis=1)
+    if not (got <= (1 + 1e-5) * kth[:, None]).all():
+        raise AssertionError(f"{name}: a returned id lies beyond the float64 "
+                             "k-th distance")
+
+
+def phase_ivf_pq(torch, kernels):
+    """Phase 4: IVF-PQ at SIFT1M scale, PQCodec's ADC scan, FlatIndex k=300."""
+    from vector_db_tpu_torch import (
+        FlatIndex, IvfIndex, Node, PQCodec, sift_like)
+    from vector_db_tpu_torch.index.ivf import _probe
+    from vector_db_tpu_torch.index.pq import _adc_lut
+    from vector_db_tpu_torch.ops.cuda.adc_probe import (
+        adc_probe_plain, adc_probe_scores)
+    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.exact import exact_search_tiled
+
+    t0 = time.perf_counter()
+    x, queries = sift_like(IVF_N, dim=IVF_DIM, seed=0, queries=B)
+    fresh, _ = sift_like(64, dim=IVF_DIM, seed=1)
+    log(f"sift_like corpus {IVF_N} x {IVF_DIM} and {B} queries made "
+        f"({time.perf_counter() - t0:.1f} s, host)")
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    ivf = IvfIndex(k=IVF_CELLS, device="cuda")
+    ivf.build_arrays(range(IVF_N), x, seed=0, iters=20, spill=1,
+                     list_cap_alpha=2.0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf.enable_pq(chunks=PQ_M, ksub=PQ_KSUB, opq_iters=4, residual=True)
+    torch.cuda.synchronize()
+    pq_s = time.perf_counter() - t0
+    log(f"IvfIndex(k={IVF_CELLS}).build_arrays: {build_s:.1f} s; "
+        f"enable_pq(m={PQ_M}, ksub={PQ_KSUB}, opq_iters=4, residual): "
+        f"{pq_s:.1f} s; cells {ivf.get_cluster_stats()}")
+
+    new_ids = list(range(IVF_N, IVF_N + 64))
+    for i, nid in enumerate(new_ids):
+        ivf.add(Node(id=nid, embedding=fresh[i]))
+    qd = torch.from_numpy(queries).cuda()
+    _, top1 = exact_search_tiled(qd[:100], ivf._emb, ivf._has_emb, 1)
+    deleted = sorted(set(ivf._store.ids_of(top1.cpu().numpy())[:, 0]
+                         .tolist()))
+    for i in deleted:
+        ivf.delete(i)
+    log(f"added {len(new_ids)} ids, deleted {len(deleted)} (the exact top-1 "
+        "of 100 queries)")
+
+    allowed = set(range(0, IVF_N, 3))
+    _, ids = ivf.search_batch(queries[:8], N_PROBE, K, pq=True, fetch=FETCH,
+                              filter_ids=allowed)
+    if (ids < 0).any() or not set(ids.ravel().tolist()) <= allowed:
+        raise AssertionError("ivf-pq: filtered search left the filter")
+    log("ivf-pq: filter_ids query ok")
+
+    for fn in (adc_probe_scores, adc_topk, l2_topk):
+        fn.launches = 0
+    modes = {"ivf_pq": dict(pq=True, fetch=FETCH), "ivf_flat": {}}
+    rng = np.random.default_rng(3)
+    batches = [queries + 0.01 * rng.standard_normal(queries.shape).astype(
+        np.float32) for _ in range(5)]
+    results, qps = {}, {}
+    for name, kw in modes.items():
+        results[name] = ivf.search_batch(queries, N_PROBE, K, **kw)
+        secs = []
+        for i, qb in enumerate(batches):  # 2 warm-ups, 3 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ivf.search_batch(qb, N_PROBE, K, **kw)
+            torch.cuda.synchronize()
+            if i >= 2:
+                secs.append(time.perf_counter() - t0)
+        qps[name] = B / statistics.median(secs)
+        log(f"{name}: QPS {qps[name]:.1f} (B={B}, n_probe={N_PROBE}, k={K}"
+            f"{', fetch=%d' % FETCH if kw else ''}; median of 3 host-clock "
+            "reps)")
+    counts = {"adc_probe": adc_probe_scores.launches,
+              "adc_topk": adc_topk.launches, "l2_topk": l2_topk.launches}
+    log(f"launch counts on the IVF search path: {counts}")
+    if counts["adc_probe"] <= 0:
+        raise AssertionError("adc_probe: no launch on the IVF-PQ path")
+    kernels["adc_probe"]["launches"] = counts["adc_probe"]
+
+    _, truth = exact_search_tiled(qd, ivf._emb, ivf._has_emb, K)
+    truth = ivf._store.ids_of(truth.cpu().numpy())
+    recalls = {name: recall_at(r[1], truth) for name, r in results.items()}
+    log(f"recall@{K} against the port's exact scan: {recalls}")
+    for name, (d, ids) in results.items():
+        if ids.shape != (B, K) or (ids < 0).any() or \
+                set(ids.ravel().tolist()) & set(deleted):
+            raise AssertionError(f"{name}: bad ids (pad or deleted id)")
+        if not np.isfinite(d).all():
+            raise AssertionError(f"{name}: non-finite distances")
+    if recalls["ivf_pq"] < RECALL_FLOOR:
+        raise AssertionError(f"ivf_pq: recall@{K} {recalls['ivf_pq']} < "
+                             f"{RECALL_FLOOR}")
+    if recalls["ivf_pq"] > recalls["ivf_flat"] + 0.005:
+        raise AssertionError("ivf_pq: recall above the flat probe's")
+    _, own = ivf.search_batch(fresh, N_PROBE, 1, pq=True, fetch=FETCH)
+    if own[:, 0].tolist() != new_ids:
+        raise AssertionError("ivf_pq: an added id is not its own top-1")
+    log("ivf_pq: added ids found by self-query; no deleted id returned")
+
+    # adc_probe at the main path's shape: one query block as search_batch
+    # gathers it (B = 64 queries, P = n_probe * L candidates)
+    cell_slots, cell_codes, cell_s = ivf._device_cells()
+    qb = qd[:64]
+    nb = qb.shape[0]
+    cd, probe = _probe(qb, ivf._centroids_dev, N_PROBE)
+    q_rot = ivf._pq.rotate_queries(queries[:nb])
+    lut = _adc_lut(q_rot, ivf._pq.codebooks)
+    slots = cell_slots[probe].reshape(nb, -1)
+    codes = cell_codes[probe].reshape(nb, -1, PQ_M)
+    corr = (cell_s[probe].reshape(nb, -1) + (
+        torch.gather(cd, 1, probe) - (q_rot * q_rot).sum(-1)[:, None]
+    ).repeat_interleave(cell_slots.shape[1], dim=1))
+    ok = (slots >= 0) & ivf._has_emb[slots.clamp_min(0).long()]
+    p_cand = slots.shape[1]
+    e = check_topk("adc_probe main", adc_probe_scores(lut, codes, corr, ok),
+                   None, adc_probe_plain(lut, codes, corr, ok), None,
+                   group=p_cand, scale=adc_terms(lut, corr))
+    kernels["adc_probe"]["max_abs_err"] = max(
+        kernels["adc_probe"]["max_abs_err"], e)
+    ms = cuda_ms(torch, lambda: adc_probe_scores(lut, codes, corr, ok))
+    plain_ms = cuda_ms(torch, lambda: adc_probe_plain(lut, codes, corr, ok))
+    kernels["adc_probe"].update(ms=ms, plain_ms=plain_ms)
+    log(f"adc_probe B={nb} P={p_cand} (L={cell_slots.shape[1]}) m={PQ_M} "
+        f"ksub={PQ_KSUB}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"max abs err {e}")
+    peak = torch.cuda.max_memory_allocated()
+    del cell_slots, cell_codes, cell_s, lut, codes, corr, ok, slots
+
+    # PQCodec over the corpus: the adc_topk scan against its gather mode
+    t0 = time.perf_counter()
+    codec = PQCodec(k=PQ_KSUB, chunks=PQ_M, dim=IVF_DIM, device="cuda")
+    sample = np.random.default_rng(0).choice(IVF_N, min(IVF_N, 65536),
+                                             replace=False)
+    codec.train(x[sample], seed=0)
+    codes = torch.from_numpy(codec.encode(x)).cuda()
+    log(f"PQCodec trained on {sample.size} rows and encoded {IVF_N} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    adc_topk.launches = 0
+    got = codec.adc_search(queries[:ADC_B], codes, top_k=ADC_K)
+    scan_launches = adc_topk.launches
+    want = codec.adc_search(queries[:ADC_B], codes, top_k=ADC_K + 1,
+                            mode="gather")
+    e = check_topk("PQCodec.adc_search", *map(torch.from_numpy, got),
+                   *map(torch.from_numpy, want), group=ADC_K)
+    log(f"PQCodec.adc_search (default mode) agrees with mode='gather' at "
+        f"N={IVF_N}, B={ADC_B}, k={ADC_K}: max abs err {e}; adc_topk "
+        f"launches {scan_launches}")
+    if scan_launches <= 0:
+        raise AssertionError("adc_topk: no launch on the PQCodec path")
+    kernels["adc_topk"]["launches"] = scan_launches
+    kernels["adc_topk"]["max_abs_err"] = max(
+        kernels["adc_topk"]["max_abs_err"], e)
+    del codec, codes, ivf
+
+    # FlatIndex at k = 300, above l2_topk's 256: the tiled plain branch
+    sub = x[:131072]
+    flat = FlatIndex(capacity=1 << 17, device="cuda")
+    flat.insert_nodes([Node(id=i, embedding=sub[i])
+                       for i in range(sub.shape[0])])
+    launches = l2_topk.launches
+    _, ids = flat.search_batch(queries[:8], 300)
+    if l2_topk.launches != launches or ids.shape != (8, 300):
+        raise AssertionError("FlatIndex k=300 did not take the plain branch")
+    float64_bound("FlatIndex k=300", sub, queries[:8], ids, 300)
+    log("FlatIndex f32 at k=300 over 131072 rows: within the float64 bound")
+    log(f"IVF-PQ summary: build {build_s:.1f} s, enable_pq {pq_s:.1f} s, "
+        f"QPS {qps}, recall@{K} {recalls}, peak device memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
 
 
 def main() -> int:
@@ -367,13 +644,27 @@ def main() -> int:
         "block_min": {"name": "block_min", "route": "cuda",
                       "source": "vector_db_tpu_torch/csrc/block_select.cu",
                       "replaces": "vector_db_tpu/ops/pallas/block_min.py:45"},
+        "adc_probe": {"name": "adc_probe", "route": "cuda",
+                      "source": "vector_db_tpu_torch/csrc/adc_probe.cu",
+                      "replaces": "vector_db_tpu/ops/pallas/adc_probe.py:61"},
+        "adc_topk": {"name": "adc_topk", "route": "cuda",
+                     "source": "vector_db_tpu_torch/csrc/adc_scan.cu",
+                     "replaces": "vector_db_tpu/ops/pallas/adc_scan.py:80"},
     }
     phase_kernels(torch, dev, kernels)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     phase_main_path(torch, kernels)
+    log(f"phase 3 ok on {card} ({time.perf_counter() - t0:.1f} s)")
+    # phase 3's four 1M x 768 indexes were its locals: gone on return;
+    # hand their cached blocks back before the IVF build
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_ivf_pq(torch, kernels)
+    log(f"phase 4 ok on {card} ({time.perf_counter() - t0:.1f} s)")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    log(f"phase 3 ok on {card}")
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms")

@@ -1,0 +1,135 @@
+"""The two ADC kernels' plain versions (what their wrappers run on CPU
+tensors) against the Pallas kernels they replace, run in interpret mode,
+and against a float64 numpy oracle, on the same numpy inputs. The CUDA
+kernels themselves are held against these plain versions on the card by
+tests/test_torch_cuda.py.
+
+Tolerances: against JAX rtol = atol = 2e-4, the JAX kernel test's own (its
+hi/lo bf16 LUT pair errs up to ~2^-16 per term; the port sums in f32);
+against the float64 oracle rtol = atol = 1e-5 (f32 summation order). Ids
+are compared wherever values are apart (duplicate code rows tie exactly).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_parity import assert_topk_parity, n, t
+from vector_db_tpu.ops.pallas.adc_probe import (
+    adc_probe_scores as jax_adc_probe,
+)
+from vector_db_tpu.ops.pallas.adc_scan import adc_topk as jax_adc_topk
+from vector_db_tpu_torch.ops.cuda.adc_probe import (
+    adc_probe_plain,
+    adc_probe_scores,
+)
+from vector_db_tpu_torch.ops.cuda.adc_scan import (
+    MAX_K,
+    adc_topk,
+    adc_topk_plain,
+)
+from vector_db_tpu_torch.ops.distance import BIG
+
+
+def _lut(rng, b, m, ksub):
+    return (rng.standard_normal((b, m, ksub)) ** 2).astype(np.float32)
+
+
+def _probe_oracle(lut, codes, corr, valid):
+    """float64: sum_j lut[b, j, codes[b, p, j]] + corr, BIG where invalid."""
+    b, m, _ = lut.shape
+    g = lut.astype(np.float64)[np.arange(b)[:, None, None],
+                               np.arange(m)[None, None, :], codes]
+    return np.where(valid, g.sum(-1) + corr, BIG)
+
+
+@pytest.mark.parametrize("m,ksub,p", [(4, 16, 70), (16, 256, 1003),
+                                      (8, 256, 33)])
+def test_adc_probe_plain_matches_pallas_and_oracle(m, ksub, p):
+    rng = np.random.default_rng(m * 1000 + p)
+    b = 3
+    lut = _lut(rng, b, m, ksub)
+    codes = rng.integers(0, ksub, (b, p, m)).astype(np.uint8)
+    codes[:, 1] = codes[:, 0]                   # duplicate candidates
+    corr = rng.standard_normal((b, p)).astype(np.float32)
+    valid = rng.random((b, p)) > 0.2
+    got = adc_probe_scores(t(lut), t(codes), t(corr), t(valid))
+    assert got.dtype == torch.float32 and got.shape == (b, p)
+    np.testing.assert_array_equal(n(got), n(adc_probe_plain(
+        t(lut), t(codes), t(corr), t(valid))))
+    want = _probe_oracle(lut, codes, corr, valid)
+    np.testing.assert_allclose(n(got), want, rtol=1e-5, atol=1e-5)
+    # the JAX kernel takes the transposed, widened codes [B, m, P]
+    codes_t = np.ascontiguousarray(codes.transpose(0, 2, 1)).astype(np.int32)
+    ref = np.asarray(jax_adc_probe(jnp.asarray(lut), jnp.asarray(codes_t),
+                                   jnp.asarray(corr), jnp.asarray(valid),
+                                   tile=128, interpret=True))
+    np.testing.assert_allclose(n(got)[valid], ref[valid], rtol=2e-4,
+                               atol=2e-4)
+    assert (n(got)[~valid] >= BIG).all() and (ref[~valid] >= BIG).all()
+
+
+def _scan_inputs(seed, nrows, m, ksub, b, dups=6):
+    rng = np.random.default_rng(seed)
+    lut = _lut(rng, b, m, ksub)
+    codes = rng.integers(0, ksub, (nrows, m)).astype(np.int32)
+    codes[1:dups] = codes[0]                    # tied distances
+    valid = rng.random(nrows) > 0.1
+    return lut, codes, valid
+
+
+def _scan_oracle(lut, codes, valid, k):
+    """float64 distances [B, N] and the rows' ascending order."""
+    b, m, _ = lut.shape
+    d = lut.astype(np.float64)[:, np.arange(m)[None, :], codes].sum(-1)
+    return np.where(valid[None, :], d, np.inf)
+
+
+@pytest.mark.parametrize("nrows,m,ksub,b,k", [(700, 8, 16, 4, 10),
+                                              (1030, 16, 256, 2, 33)])
+def test_adc_topk_plain_matches_pallas(nrows, m, ksub, b, k):
+    lut, codes, valid = _scan_inputs(nrows, nrows, m, ksub, b)
+    got = adc_topk(t(lut), t(codes), t(valid), k)
+    assert got[1].dtype == torch.int32
+    want = jax_adc_topk(jnp.asarray(lut), jnp.asarray(codes),
+                        jnp.asarray(valid), k, tile=128, interpret=True)
+    assert_topk_parity(*got, *want, rtol=2e-4, atol=2e-4)
+    # and the exact float64 ranking
+    d64 = _scan_oracle(lut, codes, valid, k)
+    kth = np.sort(d64, axis=1)[:, k - 1]
+    picked = np.take_along_axis(d64, n(got[1]).astype(np.int64), axis=1)
+    assert (picked <= kth[:, None] * (1 + 1e-5) + 1e-5).all()
+    np.testing.assert_allclose(n(got[0]), np.sort(d64, axis=1)[:, :k],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_adc_topk_more_k_than_valid_rows_pads():
+    lut, codes, _ = _scan_inputs(3, 300, 4, 16, 3)
+    valid = np.zeros(300, bool)
+    valid[[4, 150, 299]] = True
+    got = adc_topk(t(lut), t(codes), t(valid), 8)
+    want = jax_adc_topk(jnp.asarray(lut), jnp.asarray(codes),
+                        jnp.asarray(valid), 8, tile=128, interpret=True)
+    assert_topk_parity(*got, *want, rtol=2e-4, atol=2e-4)
+    assert (n(got[1])[:, 3:] == -1).all() and (n(got[0])[:, 3:] >= BIG).all()
+    assert set(n(got[1])[:, :3].ravel().tolist()) == {4, 150, 299}
+
+
+def test_adc_topk_uint8_codes_match_int32():
+    lut, codes, valid = _scan_inputs(4, 900, 16, 256, 5)
+    a = adc_topk(t(lut), t(codes), t(valid), 20)
+    b = adc_topk(t(lut), t(codes.astype(np.uint8)), t(valid), 20)
+    assert_topk_parity(*a, *b, rtol=0, atol=0)
+
+
+def test_adc_topk_limits_k_and_plain_takes_any_k():
+    lut, codes, valid = _scan_inputs(5, 600, 4, 16, 2)
+    with pytest.raises(ValueError, match=str(MAX_K)):
+        adc_topk(t(lut), t(codes), t(valid), MAX_K + 1)
+    d, i = adc_topk_plain(t(lut), t(codes), t(valid), 300, tile=128)
+    d64 = _scan_oracle(lut, codes, valid, 300)
+    np.testing.assert_allclose(n(d), np.sort(d64, axis=1)[:, :300],
+                               rtol=1e-5, atol=1e-5)
+    picked = np.take_along_axis(d64, n(i).astype(np.int64), axis=1)
+    np.testing.assert_allclose(picked, n(d), rtol=1e-5, atol=1e-5)

@@ -6,6 +6,7 @@ tied values."""
 
 import numpy as np
 import pytest
+import torch
 
 from tests.torch_parity import assert_topk_parity, recall
 from vector_db_tpu.datasets import embedding_like
@@ -13,6 +14,7 @@ from vector_db_tpu.index.flat import FlatIndex as JaxFlat
 from vector_db_tpu.storage import InMemoryNodeStorage
 from vector_db_tpu.types import Node
 from vector_db_tpu_torch.index.flat import FlatIndex
+from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
 
 PRECISIONS = ["f32", "bf16", "blocksel", "blocksel2p"]
 
@@ -108,11 +110,27 @@ def test_more_k_than_rows_and_empty():
 
 
 def test_k_above_kernel_limit_raises():
+    """The kernel wrapper keeps its k <= 256 limit on every device; the
+    index branches on k to the tiled plain scan above it and answers."""
     x, q = _corpus(seed=6, nrows=300)
     port = FlatIndex(device="cpu")
     port.insert_nodes(_nodes(x))
     with pytest.raises(ValueError, match="256"):
-        port.search_batch(q, 257)
+        l2_topk(torch.from_numpy(q), port._store.emb, port._store.valid, 257)
+    d, i = port.search_batch(q, 257)
+    assert i.shape == (16, 257) and (i[:, :256] >= 0).all()
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_k_300_matches_jax(precision):
+    """k above the l2_topk kernel's 256 (the JAX FlatIndex answers)."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((600, 16)).astype(np.float32)
+    q = rng.standard_normal((2, 16)).astype(np.float32)
+    port, ref = _pair(x, deleted=range(0, 600, 9), capacity=1024,
+                      precision=precision, bf16_guard="off")
+    ids = _check(port, ref, q, k=300)
+    assert ids.shape == (2, 300) and (ids >= 0).all()
 
 
 @pytest.mark.parametrize("precision", PRECISIONS)

@@ -1,5 +1,5 @@
-"""vector_db_tpu_torch runs without jax, and never falls back to the CPU
-when a GPU was asked for."""
+"""vector_db_tpu_torch runs without jax (FlatIndex and IVF-PQ end to end),
+and never falls back to the CPU when a GPU was asked for."""
 
 import subprocess
 import sys
@@ -32,6 +32,24 @@ def test_port_never_imports_jax():
                               for i in range(300)])
             _, ids = idx.search_batch(x[:3], 4)
             assert (ids[:, 0] == [0, 1, 2]).all(), (precision, ids)
+        # IVF-PQ end to end: scale build, residual PQ with OPQ, add,
+        # delete, filtered and unfiltered probes, and a PQCodec scan
+        xs, qs = vt.sift_like(3000, dim=16, seed=0, queries=4,
+                              n_clusters=32)
+        ivf = vt.IvfIndex(k=16, device="cpu")
+        ivf.build_arrays(range(3000), xs, seed=0, iters=5, spill=1)
+        ivf.enable_pq(chunks=4, ksub=32, opq_iters=1)
+        ivf.add(vt.Node(id=5000, embedding=qs[0]))
+        ivf.delete(7)
+        _, ids = ivf.search_batch(qs, n_probe=4, top_k=5, pq=True)
+        assert ids[0, 0] == 5000 and 7 not in ids, ids
+        _, ids = ivf.search_batch(qs, n_probe=4, top_k=5,
+                                  filter_ids=set(range(0, 3000, 2)))
+        assert (ids % 2 == 0).all(), ids
+        codec = vt.PQCodec(k=16, chunks=4, dim=16, device="cpu")
+        codec.train(xs[:500], iters=5, restarts=1)
+        _, rows = codec.adc_search(xs[:3], codec.encode(xs[:500]), top_k=3)
+        assert rows.shape == (3, 3), rows
         assert "jax" not in sys.modules, sorted(
             m for m in sys.modules if m.startswith("jax"))
         if not torch.cuda.is_available():
@@ -41,6 +59,12 @@ def test_port_never_imports_jax():
                 assert "CUDA" in str(e)
             else:
                 raise AssertionError("FlatIndex(device='cuda') ran without a GPU")
+            try:
+                vt.IvfIndex(k=4, device="cuda")
+            except RuntimeError as e:
+                assert "CUDA" in str(e)
+            else:
+                raise AssertionError("IvfIndex(device='cuda') ran without a GPU")
         print("isolated")
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

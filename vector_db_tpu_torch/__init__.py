@@ -7,14 +7,15 @@ torch and never jax. Host-only modules of the JAX package (``types.Node``,
 ``storage``, ``datasets``) import no jax and are reused, not copied.
 
 Exports are lazy, so importing the package loads neither torch nor the
-kernels: FlatIndex, resolve_device, Node, InMemoryNodeStorage,
-embedding_like.
+kernels: FlatIndex, IvfIndex, PQCodec, ProductQuantizationService,
+resolve_device, Node, InMemoryNodeStorage, embedding_like, sift_like.
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["FlatIndex", "resolve_device", "Node", "InMemoryNodeStorage",
-           "embedding_like", "__version__"]
+__all__ = ["FlatIndex", "IvfIndex", "PQCodec", "ProductQuantizationService",
+           "resolve_device", "Node", "InMemoryNodeStorage", "embedding_like",
+           "sift_like", "__version__"]
 
 
 def __getattr__(name):
@@ -22,6 +23,14 @@ def __getattr__(name):
         from vector_db_tpu_torch.index.flat import FlatIndex
 
         return FlatIndex
+    if name == "IvfIndex":
+        from vector_db_tpu_torch.index.ivf import IvfIndex
+
+        return IvfIndex
+    if name in ("PQCodec", "ProductQuantizationService"):
+        from vector_db_tpu_torch.index import pq
+
+        return getattr(pq, name)
     if name == "resolve_device":
         from vector_db_tpu_torch.device import resolve_device
 
@@ -38,4 +47,8 @@ def __getattr__(name):
         from vector_db_tpu.datasets import embedding_like
 
         return embedding_like
+    if name == "sift_like":
+        from vector_db_tpu.datasets import sift_like
+
+        return sift_like
     raise AttributeError(name)

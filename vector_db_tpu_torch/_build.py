@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with nvcc at first use; bind them with ctypes.
 
-The sources are ``csrc/*.cu`` (plain C entry points, no PyTorch headers), so
-one nvcc call builds them all in seconds. The shared library goes to
+The sources are ``csrc/*.cu`` (plain C entry points, no PyTorch headers),
+compiled in parallel, one nvcc each, in seconds. The shared library goes to
 ``build/kernels/`` at the repository root, named by a hash of the sources
 and flags, so an edited source is rebuilt and an unchanged one is reused.
 A missing ``nvcc`` or a failed build raises: nothing falls back.
@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +34,12 @@ _SIGNATURES = {
                     _P],
     # q, tab, xsq_eff, B, N, ds, m, is_bf16, vals, rows, stream
     "vdb_block_select": [_P, _P, _P, _I, _L, _I, _I, _I, _P, _P, _P],
+    # lut, codes, corr, valid, B, P, m, ksub, out, stream
+    "vdb_adc_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # lut, codes, valid, B, N, m, ksub, k, warps, rows_per_split, splits,
+    # is_u8, out_v, out_i, stream
+    "vdb_adc_topk": [_P, _P, _P, _I, _L, _I, _I, _I, _I, _L, _I, _I, _P, _P,
+                     _P],
 }
 
 _lock = threading.Lock()
@@ -64,22 +70,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvdb_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the hashed library unless it exists."""
+    """Compile ``csrc/*.cu`` into the hashed library unless it exists: one
+    nvcc per source, all started together, then one link."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cu, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(cu, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     build_seconds = time.perf_counter() - t0
     return out

@@ -29,53 +29,18 @@
 // sorted insertion. Tensor-core scoring is later work.
 //
 // Ties: within a split rows arrive in ascending order and an equal value is
-// inserted after the entries already held, so the lower row wins.
+// inserted after the entries already held, so the lower row wins (the list
+// code is shared with adc_scan.cu: topk_list.cuh).
 
 #include "tile_dot.cuh"
+#include "topk_list.cuh"
 
 using namespace vdb;
 
 namespace {
 
-constexpr int kMaxK = 256;
-constexpr int kPerLane = kMaxK / 32;
-
-// Insert (v, id) into the warp's ascending list of k entries, v < lv[k-1].
-// Returns the new k-th value.
-__device__ __noinline__ float insert(float* lv, int* li, int k, float v,
-                                     int id, int lane) {
-  float ov[kPerLane];
-  int oi[kPerLane];
-  int cnt = 0;
-#pragma unroll
-  for (int s = 0; s < kPerLane; ++s) {
-    const int e = lane + 32 * s;
-    if (e < k) {
-      ov[s] = lv[e];
-      oi[s] = li[e];
-      cnt += ov[s] <= v;
-    }
-  }
-  const int p = __reduce_add_sync(0xffffffffu, cnt);  // p < k
-  __syncwarp();
-#pragma unroll
-  for (int s = 0; s < kPerLane; ++s) {
-    const int e = lane + 32 * s;
-    if (e >= p && e < k - 1) {
-      lv[e + 1] = ov[s];
-      li[e + 1] = oi[s];
-    }
-  }
-  if (lane == 0) {
-    lv[p] = v;
-    li[p] = id;
-  }
-  __syncwarp();
-  return lv[k - 1];
-}
-
 template <typename T, int QPW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 l2_topk_kernel(const T* __restrict__ q, const T* __restrict__ emb,
                const float* __restrict__ qsq, const float* __restrict__ xsq,
                const uint8_t* __restrict__ valid, int B, int64_t N, int d,
@@ -105,10 +70,8 @@ l2_topk_kernel(const T* __restrict__ q, const T* __restrict__ emb,
     const int qg = q0 + warp * QPW + qi;
     qsq_r[qi] = qg < B ? qsq[qg] : 0.f;
     thr[qi] = kBig;
-    for (int e = lane; e < k; e += 32) {
-      topv[(warp * QPW + qi) * k + e] = kBig;
-      topi[(warp * QPW + qi) * k + e] = -1;
-    }
+    list_init(topv + (warp * QPW + qi) * k, topi + (warp * QPW + qi) * k, k,
+              lane);
   }
   __syncwarp();
 
@@ -147,14 +110,8 @@ l2_topk_kernel(const T* __restrict__ q, const T* __restrict__ emb,
         float dist = qsq_r[qi] - 2.f * acc[qi][r] + xr[r];
         if (kClamp) dist = fmaxf(dist, 0.f);
         if (!ok[r]) dist = kBig;
-        unsigned want = __ballot_sync(0xffffffffu, dist < thr[qi]);
-        while (want) {  // candidates in ascending row order
-          const int src = __ffs(want) - 1;
-          want &= want - 1;
-          const float v = __shfl_sync(0xffffffffu, dist, src);
-          if (v < thr[qi])
-            thr[qi] = insert(lv, li, k, v, (int)(row0 + src + 32 * r), lane);
-        }
+        thr[qi] = list_offer(lv, li, k, thr[qi], dist, (int)(row0 + 32 * r),
+                             lane);
       }
     }
   }

@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topk_list.cuh"  // kBig
+
 namespace vdb {
 
 constexpr int kRows = 128;            // corpus rows per tile = one JAX block
@@ -24,7 +26,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 64;            // columns staged per pass
 constexpr int kStride = kChunk + 4;   // f32 row stride in shared memory
-constexpr float kBig = 3.0e38f;       // the JAX masking sentinel
 constexpr float kPadRow = 2.0e38f;    // what a JAX padding row scores
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

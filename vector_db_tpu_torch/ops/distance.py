@@ -54,3 +54,15 @@ def exact_rows_sq(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return ((rows * rows).sum(-1)
             - 2.0 * (rows * queries[:, None, :]).sum(-1)
             + (queries * queries).sum(-1, keepdim=True))
+
+
+def gather_l2_sq(queries: torch.Tensor, emb: torch.Tensor, idx: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Squared L2 from each query f32[B, d] to its own gathered rows
+    ``emb[idx]`` (idx int32[B, K], -1 padded) -> f32[B, K], clamped at 0,
+    BIG where ``valid`` (bool[B, K]) is False or idx < 0. The exact rerank
+    primitive: elementwise f32 products (:func:`exact_rows_sq`), as the JAX
+    version's ``Precision.HIGHEST``."""
+    rows = emb[idx.clamp_min(0).long()].float()
+    d = exact_rows_sq(queries.float(), rows).clamp_min(0.0)
+    return torch.where(valid & (idx >= 0), d, BIG)

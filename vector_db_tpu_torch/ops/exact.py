@@ -7,6 +7,12 @@ The corpus scans run through hand-written kernels on CUDA tensors:
 ``block_min_scan``. On CPU tensors each kernel wrapper runs its plain
 version.
 
+``l2_topk`` keeps its lists in shared memory and takes k <= 256. The three
+l2 scans answer for every k, as the JAX functions do: above 256 they branch,
+on k alone, to the tiled plain formulation ``l2_topk_plain`` (an f32
+product and a top-k merge per corpus tile, what the JAX package's
+``exact_search_tiled`` computes), on every device.
+
 Every product under the exact contract (the rescores) is an elementwise
 f32 product (``exact_rows_sq``), so TF32 cannot enter. Selection is exact
 ``torch.topk``: the TPU's ``approx_min_k`` has no CUDA counterpart.
@@ -21,13 +27,23 @@ import torch
 
 from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
 from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
-from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+from vector_db_tpu_torch.ops.cuda.l2_topk import MAX_K, l2_topk, l2_topk_plain
 from vector_db_tpu_torch.ops.distance import (
     BIG,
     BIG_THRESH,
     PAD_ROW,
     exact_rows_sq,
+    squared_norms,
 )
+
+
+def _l2_scan(queries, emb, valid, k, x_sq=None, tile=65536):
+    """``l2_topk`` for k <= 256, its tiled plain version above."""
+    if k <= MAX_K:
+        return l2_topk(queries, emb, valid, k, x_sq=x_sq, tile=tile)
+    if x_sq is None:
+        x_sq = squared_norms(emb.float())
+    return l2_topk_plain(queries, emb, valid, k, x_sq, tile)
 
 
 def exact_search(
@@ -37,8 +53,9 @@ def exact_search(
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by squared L2: (f32[B, k], int32[B, k]) ascending,
-    (BIG, -1) padded when fewer than k rows are valid."""
-    return l2_topk(queries, emb, valid, k)
+    (BIG, -1) padded when fewer than k rows are valid. k <= 256 runs the
+    ``l2_topk`` kernel, a larger k the tiled plain scan."""
+    return _l2_scan(queries, emb, valid, k)
 
 
 def exact_search_tiled(
@@ -49,8 +66,9 @@ def exact_search_tiled(
     tile: int = 65536,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`exact_search` with the plain version streaming ``tile`` rows
-    at a time (the kernel never holds more than its tile)."""
-    return l2_topk(queries, emb, valid, k, tile=tile)
+    at a time (the kernel never holds more than its tile); the same branch
+    on k."""
+    return _l2_scan(queries, emb, valid, k, tile=tile)
 
 
 def approx_search_tiled(
@@ -67,8 +85,9 @@ def approx_search_tiled(
     should come from the f32 source. Selection is exact (the JAX version's
     ``approx_min_k`` is TPU hardware). Returned distances are bf16-accurate;
     callers needing exact distances re-score with :func:`rescore_exact`.
+    k <= 256 runs the ``l2_topk`` kernel, a larger k its tiled plain scan.
     """
-    return l2_topk(queries, emb, valid, k, x_sq=x_sq, tile=tile)
+    return _l2_scan(queries, emb, valid, k, x_sq=x_sq, tile=tile)
 
 
 def _final_top_k(
