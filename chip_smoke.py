@@ -19,7 +19,24 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    search_batch at B = 1000 in the PQ-probe (n_probe = 16, fetch = 512)
    and flat modes against the port's exact scan; then a PQCodec ADC scan
    of the corpus (adc_topk) against its gather mode, and a FlatIndex search
-   at k = 300 (above l2_topk's 256) against float64.
+   at k = 300 (above l2_topk's 256) against float64;
+5. HNSW at the repo's 1M benchmark setting (scripts/exp_wide_final.py:38-76,
+   scripts/bench_1m.py:85-92): bulk_build of 1M x 768 embedding_like rows
+   (M = 16, l_max = 5; level 0 clustered, level 1 through knn_exact and
+   l2_topk, higher levels in numpy), 100 deletes, enable_wide(dims=128,
+   seeds=16384), wide-beam search at ef = 1280, F = 224, T = 10 with and
+   without the sorted_topk merge kernel, a filtered wide search at 10 %
+   selectivity and the classic beam at ef = 400, all at B = 1000 against
+   the port's exact scan; sorted_topk on the main path's own merge input.
+
+Phases 3-5 also profile each search mode (torch.profiler over 3 calls):
+device busy time, idle share of the wall time, the largest device items.
+
+Each kernel's record carries its time, its plain version's, a library
+call's where one PyTorch call computes the same function, and its bound:
+the larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its operations over the card's peak for their type
+(H100 SXM: 67 TFLOP/s f32, 989 TFLOP/s bf16 tensor cores).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record, and the one before that the card's name and power
@@ -30,6 +47,7 @@ from __future__ import annotations
 
 import gc
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -63,6 +81,26 @@ FETCH = 512
 ADC_B = 128             # adc_topk's main-path shape: B queries, k = 100
 ADC_K = 100
 RECALL_FLOOR = 0.95     # the JAX package recorded 0.977 here
+# phase 5: HNSW at 1M x 768 (scripts/exp_wide_final.py:38-76)
+HNSW_N = 1_000_000
+HNSW_DIM = 768
+HNSW_M = 16
+HNSW_EFC = 200
+HNSW_LMAX = 5
+N_DELETE = 100
+WIDE_DIMS = 128
+WIDE_SEEDS = 16384
+WIDE_EF = 1280          # bucketed to the pool width P = 2048
+WIDE_F = 224
+WIDE_T = 10
+CLASSIC_EF = 400
+FILTER_EVERY = 10       # 10 % selectivity
+WIDE_FLOOR = 0.95       # the JAX package recorded 0.9591 (EXP_WIDE_FINAL)
+CLASSIC_FLOOR = 0.70    # README: 0.775 at ef = 400 on an older graph
+# peaks for the bound (H100 SXM datasheet, at 700 W)
+HBM_BYTES_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 
 
 def log(*parts) -> None:
@@ -82,6 +120,41 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, peak: float):
+    """(ms, what sets it): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def set_bound(kernel, nbytes, ops, peak, library_ms=None) -> None:
+    kernel["bound_ms"], kernel["bound_by"] = bound(nbytes, ops, peak)
+    kernel["library_ms"] = library_ms
+
+
+def check_sorted(name, got, want) -> float:
+    """sorted_topk against its plain version run for one more column: keys
+    equal exactly; payloads equal as a multiset within each run of equal
+    keys (a run that continues past the cut only by its keys). Returns the
+    max abs key difference (0)."""
+    gk, gv = got[0].float().cpu().numpy(), got[1].cpu().numpy()
+    wk, wv = want[0].float().cpu().numpy(), want[1].cpu().numpy()
+    topk = gk.shape[1]
+    if not np.array_equal(gk, wk[:, :topk]):
+        raise AssertionError(f"{name}: keys differ from the plain version")
+    cut = (wk[:, topk:topk + 1] == wk[:, topk - 1:topk]
+           if wk.shape[1] > topk else np.zeros((gk.shape[0], 1), bool))
+    keep = ~((gk == gk[:, -1:]) & cut)
+    for r in range(gk.shape[0]):
+        a = np.lexsort((gv[r][keep[r]], gk[r][keep[r]]))
+        b = np.lexsort((wv[r, :topk][keep[r]], wk[r, :topk][keep[r]]))
+        if not np.array_equal(gv[r][keep[r]][a], wv[r, :topk][keep[r]][b]):
+            raise AssertionError(f"{name}: payloads differ within a run of "
+                                 "equal keys")
+    return float(np.abs(gk - wk[:, :topk]).max(initial=0.0))
 
 
 def check_topk(name, got_v, got_i, want_v, want_i, group: int,
@@ -135,6 +208,8 @@ def phase_kernels(torch, dev, kernels):
         adc_probe_plain, adc_probe_scores)
     from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk, adc_topk_plain
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
+    from vector_db_tpu_torch.ops.cuda.sorted_topk import (
+        sorted_topk, sorted_topk_plain)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -204,8 +279,42 @@ def phase_kernels(torch, dev, kernels):
         return check_topk(f"adc_topk {dtype} n={n} m={m} ksub={ksub} b={b} "
                           f"k={k}", *got, *want, group=k)
 
+    def sorted_case(b, n, topk, dtype, presorted=0, ties=False):
+        d = randn(b, n)
+        if ties:
+            d = (d * 4).round()
+        if presorted:
+            d[:, :presorted] = d[:, :presorted].sort(dim=1).values
+        d = d.to(dtype)
+        d[:, 1::7] = 3.0e38
+        v = torch.randint(0, 1 << 30, (b, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+        got = sorted_topk(d, v, topk, presorted=presorted)
+        want = sorted_topk_plain(d, v, min(topk + 1, n))
+        name = (f"sorted_topk {dtype} b={b} n={n} topk={topk} "
+                f"presorted={presorted} ties={ties}")
+        e = check_sorted(name, got, want)
+        ms = cuda_ms(torch, lambda: sorted_topk(d, v, topk,
+                                                presorted=presorted))
+        plain_ms = cuda_ms(torch, lambda: sorted_topk_plain(d, v, topk))
+        lib_ms = cuda_ms(torch, lambda: torch.gather(v, 1, torch.topk(
+            d.float(), topk, dim=1, largest=False).indices))
+        log(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"torch.topk + gather {lib_ms:.3f} ms, max abs err {e}")
+        return e
+
     err = {"l2_topk": 0.0, "block_topm": 0.0, "block_min": 0.0,
-           "adc_probe": 0.0, "adc_topk": 0.0}
+           "adc_probe": 0.0, "adc_topk": 0.0, "sorted_topk": 0.0}
+    for args, kw in (((1, 9216, 2048, torch.bfloat16), {}),       # B = 1
+                     ((7, 1003, 999, torch.float32), {}),         # ragged n
+                     ((3, 40000, 3000, torch.float32), {}),       # n > 16384
+                     ((2, 70000, 8192, torch.bfloat16), {}),
+                     ((5, 9216, 2048, torch.bfloat16), {"presorted": 2048}),
+                     ((6, 5000, 2500, torch.bfloat16), {"ties": True}),
+                     ((4, 20000, 1000, torch.float32), {"ties": True})):
+        err["sorted_topk"] = max(err["sorted_topk"], sorted_case(*args, **kw))
+    log(f"phase 2 sorted_topk edge shapes ok: keys and payloads equal the "
+        f"plain version's, max abs err {err['sorted_topk']}")
     for m in (4, 8, 16):
         for ksub in (16, 256):
             for b, p in ((1, 70), (7, 1000 + 3)):
@@ -253,6 +362,10 @@ def phase_kernels(torch, dev, kernels):
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, max abs err {e}")
         if label == "f32":
             kernels["l2_topk"].update(ms=ms, plain_ms=plain_ms)
+            # reads: table, its norms and mask, the queries; the k-lists out
+            set_bound(kernels["l2_topk"],
+                      N_MAIN * DIM * 4 + N_MAIN * 5 + B * DIM * 4 + B * K * 8,
+                      2.0 * B * N_MAIN * DIM, F32_FLOPS)
         del tab, x_sq, valid, got, want
 
     tab = randn(N_MAIN, DS).to(torch.bfloat16)
@@ -274,6 +387,9 @@ def phase_kernels(torch, dev, kernels):
              lambda: block_min_plain(qs, tab, xsq))):
         ms, plain_ms = cuda_ms(torch, fn), cuda_ms(torch, plain)
         kernels[name].update(ms=ms, plain_ms=plain_ms)
+        out = (N_MAIN // 128) * B * (M_2P * 8 if name == "block_topm" else 4)
+        set_bound(kernels[name], N_MAIN * (DS * 2 + 4) + B * DS * 4 + out,
+                  2.0 * B * N_MAIN * DS, BF16_TC_FLOPS)
         log(f"{name} bf16 table N={N_MAIN} ds={DS} B={B}"
             f"{' m=%d' % M_2P if name == 'block_topm' else ''}: "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -291,6 +407,10 @@ def phase_kernels(torch, dev, kernels):
     plain_ms = cuda_ms(torch, lambda: adc_topk_plain(lut, codes, valid,
                                                      ADC_K))
     kernels["adc_topk"].update(ms=ms, plain_ms=plain_ms)
+    # reads: int32 codes, mask, LUTs; one f32 add per (query, row, subspace)
+    set_bound(kernels["adc_topk"],
+              N_MAIN * (PQ_M * 4 + 1) + ADC_B * PQ_M * PQ_KSUB * 4
+              + ADC_B * ADC_K * 8, float(ADC_B) * N_MAIN * PQ_M, F32_FLOPS)
     log(f"adc_topk int32 codes N={N_MAIN} m={PQ_M} ksub={PQ_KSUB} B={ADC_B} "
         f"k={ADC_K}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"max abs err {e}")
@@ -380,6 +500,8 @@ def phase_main_path(torch, kernels):
 
     counts = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
+    for p, idx in indexes.items():
+        profile(torch, f"flat {p}", lambda: idx.search_batch(batches[0], K))
 
     # f32 against float64 ground truth over the live corpus
     live = np.ones(CORPUS, bool)
@@ -511,6 +633,9 @@ def phase_ivf_pq(torch, kernels):
     counts = {"adc_probe": adc_probe_scores.launches,
               "adc_topk": adc_topk.launches, "l2_topk": l2_topk.launches}
     log(f"launch counts on the IVF search path: {counts}")
+    for name, kw in modes.items():
+        profile(torch, name, lambda: ivf.search_batch(batches[0], N_PROBE, K,
+                                                      **kw))
     if counts["adc_probe"] <= 0:
         raise AssertionError("adc_probe: no launch on the IVF-PQ path")
     kernels["adc_probe"]["launches"] = counts["adc_probe"]
@@ -558,6 +683,10 @@ def phase_ivf_pq(torch, kernels):
     ms = cuda_ms(torch, lambda: adc_probe_scores(lut, codes, corr, ok))
     plain_ms = cuda_ms(torch, lambda: adc_probe_plain(lut, codes, corr, ok))
     kernels["adc_probe"].update(ms=ms, plain_ms=plain_ms)
+    # reads: uint8 codes, LUTs, corr, mask; writes the f32 scores
+    set_bound(kernels["adc_probe"],
+              nb * p_cand * (PQ_M + 4 + 1 + 4) + nb * PQ_M * PQ_KSUB * 4,
+              float(nb) * p_cand * (PQ_M + 1), F32_FLOPS)
     log(f"adc_probe B={nb} P={p_cand} (L={cell_slots.shape[1]}) m={PQ_M} "
         f"ksub={PQ_KSUB}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"max abs err {e}")
@@ -606,6 +735,216 @@ def phase_ivf_pq(torch, kernels):
         f"({peak / 2**30:.2f} GiB)")
 
 
+def profile(torch, label, fn, reps: int = 3) -> None:
+    """Device busy time of ``reps`` calls of ``fn`` under torch.profiler
+    (the sum of the CUDA rows of key_averages), its idle share of the wall
+    time, and the largest device items."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    fn()
+    torch.cuda.synchronize()
+    with profiler(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    rows = [r for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(r.self_device_time_total for r in rows) / reps / 1e6
+    if busy <= 0:
+        log(f"{label} profile: no device time in the trace (not measured)")
+        return
+    top = sorted(rows, key=lambda r: -r.self_device_time_total)[:6]
+    log(f"{label} profile: wall {wall * 1e3:.1f} ms/call, device busy "
+        f"{busy * 1e3:.1f} ms/call, idle share {1 - busy / wall:.3f}; "
+        "largest: " + "; ".join(
+            f"{r.key[:48]} {r.self_device_time_total / reps / 1e3:.2f} ms "
+            f"({r.count // reps}x)" for r in top))
+
+
+def exact_distances(name, x, queries, dists, ids) -> None:
+    """Reported distances ascending and each within float64 of the true L2
+    distance of its id (the exact rerank's contract)."""
+    live = ids >= 0
+    d64 = np.sqrt(((x[np.maximum(ids, 0)].astype(np.float64)
+                    - queries[:, None, :].astype(np.float64)) ** 2).sum(-1))
+    if not (np.abs(dists - d64) <= 1e-5 * d64 + 1e-6)[live].all():
+        raise AssertionError(f"{name}: a distance is not the exact L2")
+    if (np.diff(np.where(live, dists, np.inf), axis=1) < 0).any():
+        raise AssertionError(f"{name}: distances not ascending")
+
+
+def phase_hnsw(torch, kernels):
+    """Phase 5: HNSW at 1M x 768: bulk build, delete, wide and classic
+    search, and sorted_topk on the main path's own merge input."""
+    from vector_db_tpu_torch import HNSW, embedding_like
+    from vector_db_tpu_torch.index import wide_beam
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.cuda.sorted_topk import (
+        sorted_topk, sorted_topk_plain)
+    from vector_db_tpu_torch.ops.exact import exact_search_tiled
+
+    t0 = time.perf_counter()
+    x = embedding_like(HNSW_N + B, HNSW_DIM, seed=0, device="numpy")
+    queries = np.ascontiguousarray(x[HNSW_N:])
+    x = x[:HNSW_N]
+    log(f"corpus {HNSW_N} x {HNSW_DIM} and {B} queries made "
+        f"({time.perf_counter() - t0:.1f} s, host)")
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts at 0 just before the build
+    l2_topk.launches = 0
+    sorted_topk.launches = 0
+    t0 = time.perf_counter()
+    idx = HNSW(M=HNSW_M, ef_construction=HNSW_EFC, rng=random.Random(42),
+               capacity=HNSW_N, l_max=HNSW_LMAX, device="cuda")
+    idx.bulk_build(range(HNSW_N), x, alpha=1.0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_l2 = l2_topk.launches
+    lv = idx._levels_host
+    per_level = [int((lv >= level).sum()) for level in range(HNSW_LMAX)]
+    log(f"HNSW(M={HNSW_M}, l_max={HNSW_LMAX}).bulk_build: {build_s:.1f} s; "
+        f"nodes per level {per_level}; l2_topk launches in the build "
+        f"(knn_exact) {build_l2}")
+    if build_l2 <= 0:
+        raise AssertionError("bulk_build: no l2_topk launch under knn_exact")
+
+    qd = torch.from_numpy(queries).cuda()
+    _, top1 = exact_search_tiled(qd[:N_DELETE], idx._emb, idx._has_emb, 1)
+    deleted = sorted(set(idx._store.ids_of(top1.cpu().numpy())[:, 0]
+                         .tolist()))
+    for i in deleted:
+        idx.delete_node(i)
+    t0 = time.perf_counter()
+    idx.enable_wide(dims=WIDE_DIMS, seeds=WIDE_SEEDS)
+    idx._wide_tables()
+    torch.cuda.synchronize()
+    log(f"deleted {len(deleted)} ids (the exact top-1 of {N_DELETE} "
+        f"queries); enable_wide(dims={WIDE_DIMS}, seeds={WIDE_SEEDS}) and "
+        f"the mirror: {time.perf_counter() - t0:.1f} s")
+    _, truth = exact_search_tiled(qd, idx._emb, idx._has_emb, K)
+    truth = idx._store.ids_of(truth.cpu().numpy())
+
+    wide = dict(k=K, ef=WIDE_EF, frontier=WIDE_F, steps=WIDE_T,
+                dedup_window=16, seen_mask=False)
+    modes = {"wide_merge_kernel": dict(wide, merge_kernel=True),
+             "wide": dict(wide, merge_kernel=False),
+             "classic": dict(k=K, ef=CLASSIC_EF)}
+    rng = np.random.default_rng(5)
+    batches = [queries + 0.01 * rng.standard_normal(queries.shape).astype(
+        np.float32) for _ in range(5)]
+    results, qps, launches = {}, {}, {}
+    for name, kw in modes.items():
+        call = idx.search_batch if name == "classic" else idx.search_batch_wide
+        before = sorted_topk.launches
+        results[name] = call(queries, **kw)
+        secs = []
+        for i, qb in enumerate(batches):  # 2 warm-ups, 3 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(qb, **kw)
+            torch.cuda.synchronize()
+            if i >= 2:
+                secs.append(time.perf_counter() - t0)
+        qps[name] = B / statistics.median(secs)
+        launches[name] = sorted_topk.launches - before
+        log(f"{name}: QPS {qps[name]:.1f} (B={B}, {kw}; median of 3 "
+            "host-clock reps)")
+    calls = 1 + len(batches)
+    log(f"sorted_topk launches per mode: {launches} over {calls} calls each")
+    for name, kw in modes.items():
+        call = idx.search_batch if name == "classic" else idx.search_batch_wide
+        profile(torch, name, lambda: call(batches[0], **kw))
+    if launches["wide_merge_kernel"] != WIDE_T * calls or \
+            launches["wide"] or launches["classic"]:
+        raise AssertionError(f"sorted_topk: expected {WIDE_T} launches per "
+                             "merge_kernel=True call and none elsewhere")
+    kernels["sorted_topk"]["launches"] = launches["wide_merge_kernel"]
+    peak = torch.cuda.max_memory_allocated()
+
+    recalls = {name: recall_at(r[1], truth) for name, r in results.items()}
+    log(f"recall@{K} against the port's exact scan: {recalls}; on queries "
+        f"{N_DELETE}-{B - 1} (the deletes were the others' nearest rows): "
+        + str({name: round(recall_at(r[1][N_DELETE:], truth[N_DELETE:]), 4)
+               for name, r in results.items()}))
+    for name, (d, ids) in results.items():
+        if ids.shape != (B, K) or (ids < 0).any() or \
+                set(ids.ravel().tolist()) & set(deleted):
+            raise AssertionError(f"{name}: bad ids (pad or deleted id)")
+        exact_distances(name, x, queries[:8], d[:8], ids[:8])
+    if recalls["wide_merge_kernel"] < WIDE_FLOOR:
+        raise AssertionError(f"wide: recall@{K} {recalls['wide_merge_kernel']}"
+                             f" < {WIDE_FLOOR}")
+    if recalls["classic"] < CLASSIC_FLOOR:
+        raise AssertionError(f"classic: recall@{K} {recalls['classic']} < "
+                             f"{CLASSIC_FLOOR}")
+    same = np.mean([set(a) == set(b) for a, b in zip(
+        results["wide_merge_kernel"][1].tolist(),
+        results["wide"][1].tolist())])
+    if same < 0.99 or abs(recalls["wide_merge_kernel"]
+                          - recalls["wide"]) > 0.002:
+        raise AssertionError(f"merge_kernel=True/False: same id sets on "
+                             f"{same} of queries")
+    log(f"merge_kernel True/False: same id sets on {same:.4f} of queries; "
+        "no deleted id returned; distances exact and ascending on 8 queries")
+
+    # filtered wide search at 10 % selectivity
+    allowed = set(range(0, HNSW_N, FILTER_EVERY))
+    _, fids = idx.search_batch_wide(queries, filter_ids=allowed,
+                                    **modes["wide_merge_kernel"])
+    if not set(fids[fids >= 0].tolist()) <= allowed or \
+            set(fids.ravel().tolist()) & set(deleted):
+        raise AssertionError("wide: filtered search left the filter")
+    mask = torch.from_numpy(idx._store.filter_mask(allowed)).cuda()
+    _, ftruth = exact_search_tiled(qd, idx._emb, idx._has_emb & mask, K)
+    frec = recall_at(fids, idx._store.ids_of(ftruth.cpu().numpy()))
+    log(f"filtered wide search (1 in {FILTER_EVERY}): results inside the "
+        f"filter; recall@{K} {frec:.4f} against the filtered exact scan")
+
+    # sorted_topk on the main path's own merge input
+    seen = []
+    real = wide_beam.sorted_topk
+
+    def record(d, v, topk, presorted=0):
+        seen.append((d, v, topk))
+        return real(d, v, topk, presorted=presorted)
+
+    wide_beam.sorted_topk = record
+    try:
+        idx.search_batch_wide(queries, **modes["wide_merge_kernel"])
+    finally:
+        wide_beam.sorted_topk = real
+    d, v, topk = seen[WIDE_T // 2]
+    e = check_sorted("sorted_topk main", sorted_topk(d, v, topk),
+                     sorted_topk_plain(d, v, topk + 1))
+    kernels["sorted_topk"]["max_abs_err"] = max(
+        kernels["sorted_topk"]["max_abs_err"], e)
+    ms = cuda_ms(torch, lambda: sorted_topk(d, v, topk))
+    plain_ms = cuda_ms(torch, lambda: sorted_topk_plain(d, v, topk))
+
+    def library():
+        top = torch.topk(d.float(), topk, dim=1, largest=False, sorted=True)
+        return top.values, torch.gather(v, 1, top.indices)
+
+    library_ms = cuda_ms(torch, library)
+    kernels["sorted_topk"].update(ms=ms, plain_ms=plain_ms)
+    per = d.element_size() + v.element_size()
+    set_bound(kernels["sorted_topk"], d.shape[0] * (d.shape[1] + topk) * per,
+              0.0, F32_FLOPS, library_ms=library_ms)
+    log(f"sorted_topk {d.dtype} keys [{d.shape[0]}, {d.shape[1]}] -> "
+        f"topk={topk} (the merge input of step {WIDE_T // 2}): kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.topk + gather "
+        f"{library_ms:.3f} ms, bound {kernels['sorted_topk']['bound_ms']:.4f}"
+        f" ms; keys equal, payloads equal within runs of equal keys")
+    log(f"HNSW summary: build {build_s:.1f} s, QPS {qps}, recall@{K} "
+        f"{recalls}, filtered recall {frec:.4f}, peak device memory {peak} "
+        f"bytes ({peak / 2**30:.2f} GiB)")
+
+
 def main() -> int:
     import torch
 
@@ -650,6 +989,10 @@ def main() -> int:
         "adc_topk": {"name": "adc_topk", "route": "cuda",
                      "source": "vector_db_tpu_torch/csrc/adc_scan.cu",
                      "replaces": "vector_db_tpu/ops/pallas/adc_scan.py:80"},
+        "sorted_topk": {"name": "sorted_topk", "route": "cuda",
+                        "source": "vector_db_tpu_torch/csrc/sorted_topk.cu",
+                        "replaces":
+                            "vector_db_tpu/ops/pallas/bitonic_merge.py:221"},
     }
     phase_kernels(torch, dev, kernels)
     torch.cuda.empty_cache()
@@ -663,11 +1006,20 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_ivf_pq(torch, kernels)
     log(f"phase 4 ok on {card} ({time.perf_counter() - t0:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_hnsw(torch, kernels)
+    log(f"phase 5 ok on {card} ({time.perf_counter() - t0:.1f} s)")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    if any(m == "vector_db_tpu" or m.startswith("vector_db_tpu.")
+           for m in sys.modules):
+        raise AssertionError("a module of the JAX package was imported")
 
     order = ("name", "route", "source", "replaces", "launches",
-             "max_abs_err", "ms", "plain_ms")
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
     log(card)
     log(json.dumps({"kernels": [{key: kv[key] for key in order}
                                 for kv in kernels.values()]}))

@@ -1,6 +1,6 @@
 """On a CUDA device: each of the port's kernels against its plain PyTorch
-version on the same tensors, and IVF-PQ on the card against the same index
-state on the CPU. Skips without a card (a CUDA kernel has no CPU
+version on the same tensors, and IVF-PQ and HNSW on the card against the
+same index state on the CPU. Skips without a card (a CUDA kernel has no CPU
 mode). The file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -28,6 +28,10 @@ from vector_db_tpu_torch.ops.cuda.adc_probe import (
 )
 from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk, adc_topk_plain
 from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
+from vector_db_tpu_torch.ops.cuda.sorted_topk import (
+    sorted_topk,
+    sorted_topk_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -190,3 +194,115 @@ def test_wrappers_reject_cpu_mixed_devices(cuda):
                                           device=cuda),
                          torch.zeros((2, 5), device=cuda),
                          torch.ones((2, 5), dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("b,n_cols,topk,dtype,presorted,ties", [
+    (1, 100, 10, torch.float32, 0, False),          # B = 1
+    (7, 1003, 999, torch.bfloat16, 0, False),       # n not a power of two
+    (5, 9216, 2048, torch.bfloat16, 2048, False),   # the wide-beam shape
+    (3, 40000, 3000, torch.float32, 0, False),      # n > 16384, topk > 2048
+    (2, 70000, 8192, torch.bfloat16, 0, False),     # three rounds of slices
+    (6, 5000, 2500, torch.bfloat16, 0, True),       # many equal keys
+    (4, 4097, 4097, torch.float32, 0, True)])
+def test_sorted_topk_kernel_matches_plain(cuda, b, n_cols, topk, dtype,
+                                          presorted, ties):
+    """The kernel's order is total (key, then column): keys and payloads
+    equal the plain stable sort's exactly."""
+    g = torch.Generator(device=cuda).manual_seed(b * n_cols)
+    d = torch.randn(b, n_cols, generator=g, device=cuda)
+    if ties:
+        d = (d * 4).round()
+    if presorted:
+        d[:, :presorted] = d[:, :presorted].sort(dim=1).values
+    d = d.to(dtype)
+    d[:, 1::7] = 3.0e38
+    v = torch.randint(0, 1 << 30, (b, n_cols), generator=g, device=cuda,
+                      dtype=torch.int32)
+    before = sorted_topk.launches
+    got = sorted_topk(d, v, topk, presorted=presorted)
+    torch.cuda.synchronize()
+    assert sorted_topk.launches > before
+    assert sorted_topk.launches == before + 1 or n_cols > 16384
+    want = sorted_topk_plain(d, v, topk)
+    assert got[0].dtype == dtype
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_sorted_topk_rejects_what_the_kernel_does_not_take(cuda):
+    d = torch.zeros((2, 20000), device=cuda)
+    v = torch.zeros((2, 20000), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="8192"):
+        sorted_topk(d, v, 8193)
+    with pytest.raises(ValueError, match="not CUDA"):
+        sorted_topk(d, v.cpu(), 10)
+    with pytest.raises(ValueError, match="dtype"):
+        sorted_topk(d.half(), v, 10)
+
+
+def test_hnsw_on_cuda_matches_cpu(cuda):
+    """One HNSW state on both devices: classic and wide-beam search (the
+    merge through the kernel) reach the same recall."""
+    import random
+
+    from vector_db_tpu_torch.index.hnsw import HNSW
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((4000, 48)).astype(np.float32)
+    q = rng.standard_normal((50, 48)).astype(np.float32)
+    d = ((q[:, None] - x[None]) ** 2).sum(-1)
+    gt = np.argsort(d, 1)[:, :10]
+
+    def rec(ids):
+        return np.mean([len(set(a) & set(b)) / 10
+                        for a, b in zip(ids.tolist(), gt.tolist())])
+
+    cpu = HNSW(M=8, ef_construction=100, rng=random.Random(42),
+               capacity=4000, l_max=4, device="cpu")
+    cpu.bulk_build(range(4000), x)
+    gpu = HNSW(M=8, ef_construction=100, rng=random.Random(42), l_max=4,
+               device=cuda)
+    gpu.load_state(cpu.graph.neighbors.numpy(), cpu.graph.levels.numpy(),
+                   cpu.graph.entry, cpu.graph.entry_level,
+                   cpu._store.emb.numpy(), cpu._store.valid.numpy(),
+                   cpu._store.export_id_map())
+    for idx in (cpu, gpu):
+        idx.enable_wide(dims=None, seeds=512)
+    for kw in (dict(ef=64), dict(ef=100, filter_ids=set(range(0, 4000, 3)))):
+        a, b = cpu.search_batch(q, 10, **kw), gpu.search_batch(q, 10, **kw)
+        if "filter_ids" in kw:
+            assert (b[1] % 3 == 0).all()
+        else:
+            assert abs(rec(a[1]) - rec(b[1])) <= 0.01
+    before = sorted_topk.launches
+    a = cpu.search_batch_wide(q, k=10, ef=256, frontier=32, steps=10,
+                              merge_kernel=True)
+    b = gpu.search_batch_wide(q, k=10, ef=256, frontier=32, steps=10,
+                              merge_kernel=True)
+    assert sorted_topk.launches == before + 10
+    assert abs(rec(a[1]) - rec(b[1])) <= 0.01
+    c = gpu.search_batch_wide(q, k=10, ef=256, frontier=32, steps=10)
+    np.testing.assert_array_equal(b[1], c[1])
+
+
+def test_build_repeats_exactly_on_cuda(cuda, monkeypatch):
+    """k-means and the clustered bulk build give the same bits in two runs
+    on the card (the M-step adds in a fixed order, not with atomics)."""
+    import random
+
+    import vector_db_tpu_torch.index.hnsw as hnsw
+    from vector_db_tpu_torch.ops.kmeans import kmeans
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((20000, 64)).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda)
+    runs = [kmeans(xd, 128, torch.Generator().manual_seed(0), iters=5)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    monkeypatch.setattr(hnsw, "BULK_EXACT_THRESHOLD", 4000)
+    graphs = []
+    for _ in range(2):
+        idx = hnsw.HNSW(M=8, ef_construction=100, rng=random.Random(42),
+                        capacity=20000, l_max=4, device=cuda)
+        idx.bulk_build(range(20000), x)
+        graphs.append(idx.graph.neighbors)
+    assert torch.equal(graphs[0], graphs[1])

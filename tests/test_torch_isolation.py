@@ -1,5 +1,6 @@
-"""vector_db_tpu_torch runs without jax (FlatIndex and IVF-PQ end to end),
-and never falls back to the CPU when a GPU was asked for."""
+"""vector_db_tpu_torch runs without jax and without any module of the JAX
+package vector_db_tpu (FlatIndex, IVF-PQ and HNSW end to end), and never
+falls back to the CPU when a GPU was asked for."""
 
 import subprocess
 import sys
@@ -50,8 +51,30 @@ def test_port_never_imports_jax():
         codec.train(xs[:500], iters=5, restarts=1)
         _, rows = codec.adc_search(xs[:3], codec.encode(xs[:500]), top_k=3)
         assert rows.shape == (3, 3), rows
+        # HNSW end to end: bulk build through insert_nodes, delete, the
+        # classic beam (filtered too) and the wide beam with the merge
+        # kernel's plain version
+        import random
+        xe = vt.embedding_like(4096, 16, seed=0, intrinsic=8)
+        h = vt.HNSW(M=8, ef_construction=50, rng=random.Random(0),
+                    device="cpu")
+        h.insert_nodes([vt.Node(id=i, embedding=xe[i]) for i in range(4096)])
+        h.delete_node(1)
+        _, ids = h.search_batch(xe[:3], 4, ef=32)
+        assert ids[0, 0] == 0 and ids[2, 0] == 2 and 1 not in ids, ids
+        _, ids = h.search_batch(xe[:3], 4, ef=32,
+                                filter_ids=set(range(0, 4096, 2)))
+        assert (ids % 2 == 0).all(), ids
+        h.enable_wide(dims=8, seeds=256)
+        _, ids = h.search_batch_wide(xe[:3], 4, ef=64, frontier=16, steps=6,
+                                     merge_kernel=True)
+        assert ids[0, 0] == 0 and 1 not in ids, ids
         assert "jax" not in sys.modules, sorted(
             m for m in sys.modules if m.startswith("jax"))
+        jax_pkg = sorted(m for m in sys.modules
+                         if m == "vector_db_tpu"
+                         or m.startswith("vector_db_tpu."))
+        assert not jax_pkg, jax_pkg
         if not torch.cuda.is_available():
             try:
                 vt.FlatIndex(device="cuda")
@@ -65,6 +88,13 @@ def test_port_never_imports_jax():
                 assert "CUDA" in str(e)
             else:
                 raise AssertionError("IvfIndex(device='cuda') ran without a GPU")
+            try:
+                vt.HNSW(M=8, ef_construction=50, rng=random.Random(0),
+                        device="cuda")
+            except RuntimeError as e:
+                assert "CUDA" in str(e)
+            else:
+                raise AssertionError("HNSW(device='cuda') ran without a GPU")
         print("isolated")
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

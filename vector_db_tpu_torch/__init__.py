@@ -3,19 +3,21 @@
 The JAX package ``vector_db_tpu`` is the reference; this package mirrors its
 module paths and names (``ops/exact.py`` <-> ``ops/exact.py``,
 ``ops/pallas/block_topm.py`` <-> ``ops/cuda/block_topm.py``). It imports
-torch and never jax. Host-only modules of the JAX package (``types.Node``,
-``storage``, ``datasets``) import no jax and are reused, not copied.
+torch and never jax, and nothing of the JAX package: the host-only modules
+it needs (``types``, ``storage/{base,memory}``, ``datasets``) are its own
+copies, under the same names.
 
 Exports are lazy, so importing the package loads neither torch nor the
-kernels: FlatIndex, IvfIndex, PQCodec, ProductQuantizationService,
+kernels: FlatIndex, IvfIndex, HNSW, PQCodec, ProductQuantizationService,
 resolve_device, Node, InMemoryNodeStorage, embedding_like, sift_like.
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["FlatIndex", "IvfIndex", "PQCodec", "ProductQuantizationService",
-           "resolve_device", "Node", "InMemoryNodeStorage", "embedding_like",
-           "sift_like", "__version__"]
+__all__ = ["FlatIndex", "IvfIndex", "HNSW", "PQCodec",
+           "ProductQuantizationService", "resolve_device", "Node",
+           "InMemoryNodeStorage", "embedding_like", "sift_like",
+           "__version__"]
 
 
 def __getattr__(name):
@@ -27,6 +29,10 @@ def __getattr__(name):
         from vector_db_tpu_torch.index.ivf import IvfIndex
 
         return IvfIndex
+    if name == "HNSW":
+        from vector_db_tpu_torch.index.hnsw import HNSW
+
+        return HNSW
     if name in ("PQCodec", "ProductQuantizationService"):
         from vector_db_tpu_torch.index import pq
 
@@ -36,19 +42,15 @@ def __getattr__(name):
 
         return resolve_device
     if name == "Node":
-        from vector_db_tpu.types import Node
+        from vector_db_tpu_torch.types import Node
 
         return Node
     if name == "InMemoryNodeStorage":
-        from vector_db_tpu.storage import InMemoryNodeStorage
+        from vector_db_tpu_torch.storage.memory import InMemoryNodeStorage
 
         return InMemoryNodeStorage
-    if name == "embedding_like":
-        from vector_db_tpu.datasets import embedding_like
+    if name in ("embedding_like", "sift_like"):
+        from vector_db_tpu_torch import datasets
 
-        return embedding_like
-    if name == "sift_like":
-        from vector_db_tpu.datasets import sift_like
-
-        return sift_like
+        return getattr(datasets, name)
     raise AttributeError(name)

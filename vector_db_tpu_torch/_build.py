@@ -40,6 +40,9 @@ _SIGNATURES = {
     # is_u8, out_v, out_i, stream
     "vdb_adc_topk": [_P, _P, _P, _I, _L, _I, _I, _I, _I, _L, _I, _I, _P, _P,
                      _P],
+    # keys, is_bf16, vals, B, n, slice_w, topk, out_keys, out_vals, out_w,
+    # stream
+    "vdb_sorted_topk": [_P, _I, _P, _I, _L, _I, _I, _P, _P, _L, _P],
 }
 
 _lock = threading.Lock()

@@ -26,8 +26,6 @@ from typing import List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from vector_db_tpu.storage import InMemoryNodeStorage, NodeStorage
-from vector_db_tpu.types import Node
 from vector_db_tpu_torch.device import require_f32_matmul, resolve_device
 from vector_db_tpu_torch.ops.distance import squared_norms
 from vector_db_tpu_torch.ops.exact import (
@@ -37,10 +35,31 @@ from vector_db_tpu_torch.ops.exact import (
     exact_search_tiled,
     rescore_exact,
 )
+from vector_db_tpu_torch.storage import InMemoryNodeStorage, NodeStorage
 from vector_db_tpu_torch.storage.device_store import DeviceVectorStore
+from vector_db_tpu_torch.types import Node
 
 MIN_CAPACITY = 256
 _COV_CHUNK = 65536  # rows per covariance pass
+
+
+def pca_projection(emb: torch.Tensor, valid: torch.Tensor,
+                   dims: int) -> torch.Tensor:
+    """The leading ``dims`` principal directions f32[dim, min(dims, dim)]
+    of the valid rows (uncentered second moment): the covariance is a
+    true-f32 product on the device (raises if CUDA matmuls may use TF32),
+    the eigendecomposition runs on the host in float64."""
+    require_f32_matmul(emb)
+    dim = emb.shape[1]
+    cov = emb.new_zeros((dim, dim))
+    for s in range(0, emb.shape[0], _COV_CHUNK):
+        e = torch.where(valid[s:s + _COV_CHUNK, None],
+                        emb[s:s + _COV_CHUNK], 0.0)
+        cov += e.T @ e
+    n = max(1, int(valid.sum()))
+    _, v = np.linalg.eigh(cov.cpu().numpy().astype(np.float64) / n)
+    return torch.from_numpy(np.ascontiguousarray(
+        v[:, ::-1][:, :min(dims, dim)], np.float32)).to(emb.device)
 
 
 class FlatIndex:
@@ -147,24 +166,10 @@ class FlatIndex:
 
     def _proj_mirror(self, dims: int = 128):
         """(proj f32[dim, ds], tab bf16[capacity, ds], x_sq f32): the PCA
-        mirror of the blocksel scans. The covariance is a true-f32 product
-        (raises if CUDA matmuls may use TF32); the eigendecomposition runs
-        on the host in float64."""
+        mirror of the blocksel scans (:func:`pca_projection`)."""
         if self._proj is None or self._proj_stale:
-            emb, valid = self._store.emb, self._store.valid
-            require_f32_matmul(emb)
-            dim = emb.shape[1]
-            cov = emb.new_zeros((dim, dim))
-            for s in range(0, emb.shape[0], _COV_CHUNK):
-                e = torch.where(valid[s:s + _COV_CHUNK, None],
-                                emb[s:s + _COV_CHUNK], 0.0)
-                cov += e.T @ e
-            cov = cov.cpu().numpy().astype(np.float64) / max(1, self.size)
-            _, v = np.linalg.eigh(cov)
-            ds = min(dims, dim)
-            proj = torch.from_numpy(
-                np.ascontiguousarray(v[:, ::-1][:, :ds], np.float32)
-            ).to(self.device)
+            emb = self._store.emb
+            proj = pca_projection(emb, self._store.valid, dims)
             tab = (emb @ proj).to(torch.bfloat16)
             self._proj = (proj, tab, squared_norms(emb))
             self._proj_stale = False

@@ -35,8 +35,6 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from vector_db_tpu.storage import InMemoryNodeStorage, NodeStorage
-from vector_db_tpu.types import Node
 from vector_db_tpu_torch.device import require_f32_matmul, resolve_device
 from vector_db_tpu_torch.index.pq import (
     PQCodec,
@@ -51,7 +49,9 @@ from vector_db_tpu_torch.ops.cuda.adc_probe import (
 from vector_db_tpu_torch.ops.distance import BIG, gather_l2_sq, l2_sq_pairwise
 from vector_db_tpu_torch.ops.kmeans import assign_tiled, kmeans
 from vector_db_tpu_torch.ops.topk import masked_top_k_smallest
+from vector_db_tpu_torch.storage import InMemoryNodeStorage, NodeStorage
 from vector_db_tpu_torch.storage.device_store import DeviceVectorStore
+from vector_db_tpu_torch.types import Node
 
 ADC_MODES = ("pallas", "onehot", "onehot8", "gather")
 _PANEL = 1 << 26   # bound (elements) on a query block's gathered tensors

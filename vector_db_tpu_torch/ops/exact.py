@@ -179,6 +179,26 @@ def block_select_search_2p(
     return _final_top_k(queries, emb, cand, live, k)
 
 
+def knn_exact(
+    queries: torch.Tensor,   # f32[B, d], rows OF the corpus
+    q_ids: torch.Tensor,     # int32[B] their slots
+    emb: torch.Tensor,       # f32[N, d]
+    valid: torch.Tensor,     # bool[N]
+    k: int,
+    tile: int = 65536,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN of corpus members against the corpus, excluding self:
+    (d_sq f32[B, k], slots int32[B, k]) ascending, (BIG, -1) padded. The
+    bulk graph build's primitive: the scan asks for k + 1 (``l2_topk`` on
+    CUDA while k + 1 <= 256), drops each query's own slot and keeps k. A
+    row that does not find itself (more exact duplicates than k + 1) drops
+    its last entry, one of equal distance."""
+    d, i = _l2_scan(queries, emb, valid, k + 1, tile=tile)
+    is_self = (i == q_ids[:, None]).int()
+    keep = torch.sort(is_self, dim=1, stable=True).indices[:, :k]
+    return torch.gather(d, 1, keep), torch.gather(i, 1, keep)
+
+
 def rescore_exact(
     queries: torch.Tensor,   # f32[B, d]
     emb: torch.Tensor,       # f32[capacity, d], the f32 source table

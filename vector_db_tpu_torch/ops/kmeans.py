@@ -8,8 +8,9 @@ iteration count, and an empty cluster keeps its previous centroid.
   use TF32), streamed over row chunks so the ``[N, k]`` matrix never exists
   whole: the IVF build trains 4096 cells on 262,144 rows, where one
   unchunked step would be 4 GiB.
-- The M-step sums rows into their centroid with ``index_add_`` in place of
-  the JAX one-hot matmul: the same sum, in another order.
+- The M-step sums each cell's rows in row order (``segment_reduce`` over
+  the rows sorted by cell) in place of the JAX one-hot matmul: the same
+  sum, in a fixed order, so a run on the card repeats exactly.
 - Subspaces (PQ) are a leading batch axis of one batched Lloyd's, as the
   JAX package ``vmap``s.
 - Initial rows come from a ``torch.Generator``; ``jax.random`` numbers
@@ -65,9 +66,15 @@ def _lloyd(x: torch.Tensor, init_centroids: torch.Tensor, iters: int):
     for _ in range(iters):
         labels, _ = nearest(x, centroids)
         cell = (labels + base).reshape(-1)
-        sums = torch.zeros((s * k, d), dtype=x.dtype, device=x.device)
-        sums.index_add_(0, cell, flat_x)
-        counts = torch.bincount(cell, minlength=s * k).to(x.dtype)
+        counts = torch.bincount(cell, minlength=s * k)
+        # each cell's rows summed in row order, over the rows sorted by
+        # cell: a fixed order of addition (index_add_ adds with atomics on
+        # CUDA, so the centroids, and the graphs built on them, changed
+        # from run to run)
+        sums = torch.segment_reduce(
+            flat_x[torch.argsort(cell, stable=True)], "sum", lengths=counts,
+            axis=0)
+        counts = counts.to(x.dtype)
         new = (sums / counts.clamp_min(1.0)[:, None]).reshape(s, k, d)
         # empty cluster: keep the previous centroid (kmeans2 'warn' rule)
         centroids = torch.where(counts.reshape(s, k, 1) > 0, new, centroids)

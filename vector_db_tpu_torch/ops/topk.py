@@ -32,6 +32,15 @@ def masked_top_k_smallest(
     return top_d, top_i
 
 
+def later_copies(x: torch.Tensor) -> torch.Tensor:
+    """bool, x's shape: True at every copy of a value in its row (last
+    axis) but the first, in position order."""
+    sx, order = torch.sort(x, dim=-1, stable=True)
+    dup_sorted = torch.zeros_like(sx, dtype=torch.bool)
+    dup_sorted[..., 1:] = sx[..., 1:] == sx[..., :-1]
+    return torch.zeros_like(dup_sorted).scatter_(-1, order, dup_sorted)
+
+
 def merge_top_k(
     d_a: torch.Tensor,
     i_a: torch.Tensor,
