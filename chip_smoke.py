@@ -8,7 +8,11 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    off), and the nvcc build of the kernels from the checkout's sources;
 2. each kernel against its plain PyTorch version on the card: edge shapes
    (ragged N, B = 1, B off the query tile, invalid rows, k above the valid
-   rows, duplicate rows) and the main path's shapes, with both medians;
+   rows, duplicate rows; for l2_topk every query group at d = 128 and 768,
+   rows tied across tiles and CTAs, no valid row; for sorted_topk keys
+   tied across the cut, one key, +-0.0, BIG sentinels at the cut, the
+   widest row a CTA holds) and the main path's shapes, with both medians
+   and, for l2_topk, torch.matmul of the same product in each dtype;
 3. the main path at real size: FlatIndex over a 1M x 768 embedding-like
    corpus in all four precisions (insert, delete, filter, search_batch at
    B = 1000, k = 10), checked against float64 ground truth and the port's
@@ -36,7 +40,8 @@ Each kernel's record carries its time, its plain version's, a library
 call's where one PyTorch call computes the same function, and its bound:
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over the card's peak for their type
-(H100 SXM: 67 TFLOP/s f32, 989 TFLOP/s bf16 tensor cores).
+(H100 SXM: 67 TFLOP/s f32, 495 TFLOP/s TF32 and 989 TFLOP/s bf16 tensor
+cores; l2_topk's f32 table runs as 3xTF32, three TF32 products).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record, and the one before that the card's name and power
@@ -100,6 +105,7 @@ CLASSIC_FLOOR = 0.70    # README: 0.775 at ef = 400 on an older graph
 # peaks for the bound (H100 SXM datasheet, at 700 W)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_TC_FLOPS = 495e12
 BF16_TC_FLOPS = 989e12
 
 
@@ -303,8 +309,80 @@ def phase_kernels(torch, dev, kernels):
             f"torch.topk + gather {lib_ms:.3f} ms, max abs err {e}")
         return e
 
+    def sorted_edge(case, dtype):
+        """sorted_topk where the select and the cut could go wrong, at the
+        wide-beam shape (6 rows of 9,216 keys -> 2,048) or the widest row
+        a CTA holds (16,384 -> 8,192); exact equality."""
+        b, n, topk = 6, 9216, 2048
+        d = randn(b, n)
+        if case == "ties_across_cut":
+            d = (d * 2).round()
+        elif case == "all_equal":
+            d = torch.full_like(d, 1.5)
+        elif case == "signed_zeros":
+            zero = torch.zeros_like(d)
+            d = torch.where(d > 0, zero, -zero)
+            d[:, ::5] = randn(b, d[:, ::5].shape[1])
+        elif case == "big_at_cut":
+            d[:, :n - topk + 5] = 3.0e38
+        elif case == "max_width":
+            n, topk = 16384, 8192
+            d = randn(b, n)
+        d = d.to(dtype)
+        v = torch.randint(0, 1 << 30, (b, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+        got = sorted_topk(d, v, topk)
+        want = sorted_topk_plain(d, v, topk)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError(f"sorted_topk {case} {dtype}: differs "
+                                 "from the stable sort")
+
+    def l2_ties(dtype, k, b):
+        """Copies of one row in two tiles of one CTA and in other splits:
+        the lower rows come first, a cut keeps the lowest (b = 3: lists in
+        shared memory; b = 130: in registers)."""
+        n = 40000
+        x = randn(n, 96)
+        copies = [7, 200, 300, 9000, 21000, 39999]
+        x[copies] = x[copies[0]].clone()
+        q = x[copies[0]][None].repeat(b, 1).clone()
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        _, ids = l2_topk(q, x.to(dtype), valid, k, x_sq=(x * x).sum(-1))
+        run = min(k, len(copies))
+        if ids[:, :run].cpu().tolist() != [copies[:run]] * b:
+            raise AssertionError(f"l2_topk {dtype} k={k}: a tie did not go "
+                                 "to the lower row")
+
+    def l2_no_valid(dtype):
+        x = randn(3000, 64)
+        d, i = l2_topk(randn(5, 64), x.to(dtype),
+                       torch.zeros(3000, dtype=torch.bool, device=dev), 10,
+                       x_sq=(x * x).sum(-1))
+        if not ((d >= 3e38).all() and (i == -1).all()):
+            raise AssertionError(f"l2_topk {dtype}: no valid row, yet a "
+                                 "live entry")
+
     err = {"l2_topk": 0.0, "block_topm": 0.0, "block_min": 0.0,
            "adc_probe": 0.0, "adc_topk": 0.0, "sorted_topk": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in ("ties_across_cut", "all_equal", "signed_zeros",
+                     "big_at_cut", "max_width"):
+            sorted_edge(case, dtype)
+    log("phase 2 sorted_topk select edges ok (ties across the cut, one "
+        "key, +-0.0, BIG at the cut, 16,384 -> 8,192): equal to the stable "
+        "sort")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (128, 768):
+            for k in (1, 10, 64, 65, 200, 256):  # query groups 128, 64, 32
+                err["l2_topk"] = max(err["l2_topk"],
+                                     l2_case(4096 + 77, d, 130, k, dtype))
+        for k in (2, 10):
+            for b in (3, 130):
+                l2_ties(dtype, k, b)
+        l2_no_valid(dtype)
+    log(f"phase 2 l2_topk widths, ties and empty masks ok: max abs err "
+        f"{err['l2_topk']}")
     for args, kw in (((1, 9216, 2048, torch.bfloat16), {}),       # B = 1
                      ((7, 1003, 999, torch.float32), {}),         # ragged n
                      ((3, 40000, 3000, torch.float32), {}),       # n > 16384
@@ -358,14 +436,22 @@ def phase_kernels(torch, dev, kernels):
         ms = cuda_ms(torch, lambda: l2_topk(q, tab, valid, K, x_sq=x_sq))
         plain_ms = cuda_ms(torch, lambda: l2_topk_plain(q, tab, valid, K,
                                                         x_sq))
+        qc = q.to(dtype)
+        mm_ms = cuda_ms(torch, lambda: torch.matmul(qc, tab.T))
         log(f"l2_topk {label} table N={N_MAIN} d={DIM} B={B} k={K}: "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, max abs err {e}")
-        if label == "f32":
-            kernels["l2_topk"].update(ms=ms, plain_ms=plain_ms)
-            # reads: table, its norms and mask, the queries; the k-lists out
-            set_bound(kernels["l2_topk"],
-                      N_MAIN * DIM * 4 + N_MAIN * 5 + B * DIM * 4 + B * K * 8,
-                      2.0 * B * N_MAIN * DIM, F32_FLOPS)
+        log(f"torch.matmul [{B},{DIM}] x [{DIM},{N_MAIN}] in {label} "
+            f"(TF32 off; the product alone, not the same function): "
+            f"{mm_ms:.3f} ms")
+        rec = kernels["l2_topk" if label == "f32" else "l2_topk_bf16"]
+        rec.update(ms=ms, plain_ms=plain_ms, max_abs_err=e)
+        # reads: table, its norms and mask, the queries; the k-lists out.
+        # f32 as 3xTF32 is three products at the TF32 rate
+        el = 4 if label == "f32" else 2
+        set_bound(rec, N_MAIN * DIM * el + N_MAIN * 5 + B * DIM * 4
+                  + B * K * 8,
+                  (3.0 if label == "f32" else 1.0) * 2.0 * B * N_MAIN * DIM,
+                  TF32_TC_FLOPS if label == "f32" else BF16_TC_FLOPS)
         del tab, x_sq, valid, got, want
 
     tab = randn(N_MAIN, DS).to(torch.bfloat16)
@@ -416,7 +502,11 @@ def phase_kernels(torch, dev, kernels):
         f"max abs err {e}")
     del lut, codes, valid, got, want
     for name in err:
-        kernels[name]["max_abs_err"] = err[name]
+        kernels[name]["max_abs_err"] = max(err[name],
+                                           kernels[name].get("max_abs_err",
+                                                             0.0))
+    kernels["l2_topk_bf16"]["max_abs_err"] = max(
+        kernels["l2_topk_bf16"]["max_abs_err"], err["l2_topk"])
     log(f"phase 2 ok: kernels agree with their plain versions, "
         f"max abs err {err}")
 
@@ -441,6 +531,7 @@ def phase_main_path(torch, kernels):
                 "block_min": block_min_scan}
     for fn in wrappers.values():
         fn.launches = 0
+    l2_topk.launches_bf16 = 0
     torch.cuda.reset_peak_memory_stats()
 
     storage = InMemoryNodeStorage()
@@ -499,6 +590,9 @@ def phase_main_path(torch, kernels):
             "reps)")
 
     counts = {name: fn.launches for name, fn in wrappers.items()}
+    # one wrapper, two kernels: over the f32 table and over the bf16 mirror
+    counts["l2_topk_bf16"] = l2_topk.launches_bf16
+    counts["l2_topk"] -= counts["l2_topk_bf16"]
     peak = torch.cuda.max_memory_allocated()
     for p, idx in indexes.items():
         profile(torch, f"flat {p}", lambda: idx.search_batch(batches[0], K))
@@ -797,6 +891,7 @@ def phase_hnsw(torch, kernels):
 
     # the main path: counts at 0 just before the build
     l2_topk.launches = 0
+    l2_topk.launches_bf16 = 0
     sorted_topk.launches = 0
     t0 = time.perf_counter()
     idx = HNSW(M=HNSW_M, ef_construction=HNSW_EFC, rng=random.Random(42),
@@ -976,6 +1071,10 @@ def main() -> int:
         "l2_topk": {"name": "l2_topk", "route": "cuda",
                     "source": "vector_db_tpu_torch/csrc/l2_topk.cu",
                     "replaces": "vector_db_tpu/ops/pallas/l2_topk.py:70"},
+        "l2_topk_bf16": {"name": "l2_topk_bf16", "route": "cuda",
+                         "source": "vector_db_tpu_torch/csrc/l2_topk.cu",
+                         "replaces":
+                             "vector_db_tpu/ops/pallas/l2_topk.py:70"},
         "block_topm": {"name": "block_topm", "route": "cuda",
                        "source": "vector_db_tpu_torch/csrc/block_select.cu",
                        "replaces":

@@ -53,7 +53,8 @@ def _tensor(rng, shape, dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nrows,dim,b,k", [(1000, 64, 1, 10),
                                            (5000, 200, 70, 100),
-                                           (300, 32, 5, 256)])
+                                           (300, 32, 5, 256),
+                                           (3000, 100, 33, 10)])
 def test_l2_topk_kernel_matches_plain(cuda, dtype, nrows, dim, b, k):
     rng = np.random.default_rng(4)
     x = _tensor(rng, (nrows, dim), cuda)
@@ -69,6 +70,88 @@ def test_l2_topk_kernel_matches_plain(cuda, dtype, nrows, dim, b, k):
     assert l2_topk.launches == before + 1
     want = l2_topk_plain(q, tab, valid, k, x_sq)
     assert_topk_parity(*got, *want, rtol=1e-5, atol=1e-4)
+
+
+def _terms(q, x_sq):
+    """Per query: the size of the terms a distance is the difference of."""
+    return ((q * q).sum(-1) + x_sq.max()).cpu().numpy()
+
+
+@pytest.mark.parametrize("k", [1, 10, 64, 65, 200, 256])
+@pytest.mark.parametrize("dim", [128, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_topk_kernel_widths(cuda, dtype, dim, k):
+    """Every query group (k picks 128, 64 or 32 queries per CTA), B and N off
+    the 128-row tile and the query group, invalid and duplicate rows."""
+    rng = np.random.default_rng(k + dim)
+    nrows, b = 4096 + 77, 130
+    x = _tensor(rng, (nrows, dim), cuda)
+    x[1:5] = x[0]
+    valid = torch.ones(nrows, dtype=torch.bool, device=cuda)
+    valid[::9] = False
+    q = _tensor(rng, (b, dim), cuda)
+    q[0] = x[0]                        # a zero distance: term-scale error
+    x_sq = (x * x).sum(-1)
+    tab = x.to(dtype)
+    got = l2_topk(q, tab, valid, k, x_sq=x_sq)
+    want = l2_topk_plain(q, tab, valid, k, x_sq)
+    assert_topk_parity(*got, *want, rtol=1e-5, atol=1e-4,
+                       scale=_terms(q, x_sq))
+
+
+@pytest.mark.parametrize("b", [3, 130])   # lists in shared memory, registers
+@pytest.mark.parametrize("k", [2, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_topk_lower_row_wins_ties(cuda, dtype, k, b):
+    """Copies of one row in different tiles and corpus splits score the
+    same bits; the lower rows come first, and a cut inside the run keeps
+    the lowest."""
+    rng = np.random.default_rng(11)
+    nrows = 40000
+    x = _tensor(rng, (nrows, 96), cuda)
+    copies = [7, 200, 300, 9000, 21000, 39999]  # tiles 0, 1; then splits
+    x[copies] = x[copies[0]].clone()
+    q = x[copies[0]][None].repeat(b, 1).clone()
+    valid = torch.ones(nrows, dtype=torch.bool, device=cuda)
+    _, ids = l2_topk(q, x.to(dtype), valid, k, x_sq=(x * x).sum(-1))
+    run = min(k, len(copies))
+    assert n(ids)[:, :run].tolist() == [copies[:run]] * b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_topk_invalid_rows(cuda, dtype):
+    """No valid row: all (BIG, -1); fewer valid rows than k: the live ones,
+    then the pad."""
+    rng = np.random.default_rng(12)
+    x = _tensor(rng, (3000, 64), cuda)
+    q = _tensor(rng, (5, 64), cuda)
+    valid = torch.zeros(3000, dtype=torch.bool, device=cuda)
+    tab, x_sq = x.to(dtype), (x * x).sum(-1)
+    d, i = l2_topk(q, tab, valid, 10, x_sq=x_sq)
+    assert (n(d) >= 3e38).all() and (n(i) == -1).all()
+    valid[[4, 700, 2999]] = True
+    d, i = l2_topk(q, tab, valid, 10, x_sq=x_sq)
+    assert sorted(n(i)[0, :3].tolist()) == [4, 700, 2999]
+    assert (n(i)[:, 3:] == -1).all() and (n(d)[:, 3:] >= 3e38).all()
+
+
+def test_l2_topk_f32_within_float64_bound(cuda):
+    """The f32 table through 3xTF32: every returned row lies within
+    (1 + 1e-5) of the float64 k-th distance, on unnormalised rows with
+    large norms."""
+    rng = np.random.default_rng(13)
+    x = (rng.standard_normal((20000 + 64, 768)) * 30 + 5).astype(np.float32)
+    x, q = x[:20000], x[20000:]
+    xd = torch.from_numpy(x).to(cuda)
+    _, ids = l2_topk(torch.from_numpy(q).to(cuda), xd,
+                     torch.ones(20000, dtype=torch.bool, device=cuda), 10,
+                     x_sq=(xd * xd).sum(-1))
+    q64, x64 = q.astype(np.float64), x.astype(np.float64)
+    d64 = np.sqrt(np.maximum((q64 * q64).sum(1)[:, None] - 2 * q64 @ x64.T
+                             + (x64 * x64).sum(1)[None], 0))
+    kth = np.sort(d64, axis=1)[:, 9]
+    assert (np.take_along_axis(d64, n(ids).astype(np.int64), axis=1)
+            <= (1 + 1e-5) * kth[:, None]).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -225,6 +308,47 @@ def test_sorted_topk_kernel_matches_plain(cuda, b, n_cols, topk, dtype,
     assert sorted_topk.launches == before + 1 or n_cols > 16384
     want = sorted_topk_plain(d, v, topk)
     assert got[0].dtype == dtype
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ties_across_cut", "all_equal",
+                                  "signed_zeros", "big_at_cut", "main_shape",
+                                  "max_width"])
+def test_sorted_topk_select_edges(cuda, case, dtype):
+    """Where the radix select and the cut could go wrong: a run of keys
+    equal to the threshold crossing the cut (the lowest columns stay, as in
+    the stable sort), a row of one key, +0.0 and -0.0 as one key, BIG
+    sentinels at the cut, the wide-beam shape, and the widest row one CTA
+    holds."""
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    b, n_cols, topk = 6, 9216, 2048
+    d = torch.randn(b, n_cols, generator=g, device=cuda)
+    if case == "ties_across_cut":
+        d = (d * 2).round()            # runs of hundreds of equal keys
+    elif case == "all_equal":
+        d = torch.full_like(d, 1.5)
+    elif case == "signed_zeros":
+        zero = torch.zeros_like(d)
+        d = torch.where(d > 0, zero, -zero)  # the cut falls in this run
+        d[:, ::5] = torch.randn(b, d[:, ::5].shape[1], generator=g,
+                                device=cuda)
+    elif case == "big_at_cut":
+        d[:, :n_cols - topk + 5] = 3.0e38  # the cut falls inside the BIGs
+    elif case == "main_shape":
+        b = 1024
+        d = torch.randn(b, n_cols, generator=g, device=cuda)
+    else:
+        n_cols, topk = 16384, 8192
+        d = torch.randn(b, n_cols, generator=g, device=cuda)
+    d = d.to(dtype)
+    v = torch.randint(0, 1 << 30, (b, n_cols), generator=g, device=cuda,
+                      dtype=torch.int32)
+    before = sorted_topk.launches
+    got = sorted_topk(d, v, topk)
+    torch.cuda.synchronize()
+    assert sorted_topk.launches == before + 1
+    want = sorted_topk_plain(d, v, topk)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

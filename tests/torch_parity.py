@@ -23,18 +23,28 @@ def n(a):
     return np.asarray(a)
 
 
-def assert_topk_parity(d_got, i_got, d_want, i_want, rtol=RTOL, atol=ATOL):
+def assert_topk_parity(d_got, i_got, d_want, i_want, rtol=RTOL, atol=ATOL,
+                       scale=0.0):
     """Rows of ascending (values, ids): values agree within the tolerance,
     the -1 pads sit in the same places, and ids are equal wherever a value
     is apart from its neighbours by more than the tolerance (between tied
-    values either member may legitimately come first)."""
+    values either member may legitimately come first). ``scale`` (scalar or
+    one per row) adds rtol * scale to the tolerance: a distance computed as
+    q_sq - 2 q.x + x_sq errs relative to its terms, not to itself."""
     d_got, i_got, d_want, i_want = (n(a) for a in (d_got, i_got, d_want,
                                                    i_want))
     assert d_got.shape == d_want.shape and i_got.shape == i_want.shape
-    np.testing.assert_allclose(d_got, d_want, rtol=rtol, atol=atol)
-    np.testing.assert_array_equal(i_got < 0, i_want < 0)
     d = d_want.astype(np.float64)
-    tol = atol + rtol * np.abs(d)
+    scale = np.asarray(n(scale), np.float64)
+    tol = atol + rtol * (np.abs(d) + (scale[:, None] if scale.ndim else
+                                      scale))
+    if scale.any():
+        bad = np.abs(d_got.astype(np.float64) - d) > tol
+        assert not bad.any(), (f"{int(bad.sum())} values differ, max abs "
+                               f"err {np.abs(d_got - d)[bad].max()}")
+    else:
+        np.testing.assert_allclose(d_got, d_want, rtol=rtol, atol=atol)
+    np.testing.assert_array_equal(i_got < 0, i_want < 0)
     gap = np.abs(np.diff(d, axis=-1))
     apart = np.ones(d.shape, bool)
     apart[..., 1:] &= gap > tol[..., 1:]

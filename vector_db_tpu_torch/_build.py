@@ -28,10 +28,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # entry point -> argtypes; every entry returns the launch's cudaError_t
 _SIGNATURES = {
-    # q, emb, qsq, xsq, valid, B, N, d, k, rows_per_split, splits, is_bf16,
-    # out_v, out_i, stream
-    "vdb_l2_topk": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _I, _P, _P,
-                    _P],
+    # q (bf16, or f32 q_hi), q_lo, emb, qsq, xsq, valid, B, N, d, k, nq,
+    # rows_per_split, splits, is_bf16, out_v, out_i, stream
+    "vdb_l2_topk": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _I, _I,
+                    _P, _P, _P],
     # q, tab, xsq_eff, B, N, ds, m, is_bf16, vals, rows, stream
     "vdb_block_select": [_P, _P, _P, _I, _L, _I, _I, _I, _P, _P, _P],
     # lut, codes, corr, valid, B, P, m, ksub, out, stream

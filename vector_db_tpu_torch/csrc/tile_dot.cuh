@@ -1,4 +1,4 @@
-// Shared core of the port's corpus-scan kernels (l2_topk.cu, block_select.cu).
+// Core of the port's block-scan kernels (block_select.cu).
 //
 // A CTA of 8 warps scores one tile of 128 corpus rows against a group of
 // queries. Both operands are staged into shared memory as f32, 64 columns at

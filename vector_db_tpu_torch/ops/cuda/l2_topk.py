@@ -2,12 +2,14 @@
 
 Replaces the Pallas kernel ``vector_db_tpu/ops/pallas/l2_topk.py:l2_topk``.
 It is the kernel under the port's ``exact_search``/``exact_search_tiled``
-(f32 table) and ``approx_search_tiled`` (bf16 table, f32 norms). The
-kernel's source note says what bounds it on the H100 and what its design
-does about that.
+(f32 table) and ``approx_search_tiled`` (bf16 table, f32 norms). It scores
+on tensor cores: bf16 products directly, the f32 table as 3xTF32 from the
+split that :func:`split_tf32` gives the queries. The kernel's source note
+says what bounds it on the H100 and what its design does about that.
 
 Dispatch: a CPU tensor takes :func:`l2_topk_plain`; a CUDA tensor launches
-the kernel or raises. ``l2_topk.launches`` counts kernel launches.
+the kernel or raises. ``l2_topk.launches`` counts kernel launches,
+``l2_topk.launches_bf16`` those over a bf16 table.
 """
 
 from __future__ import annotations
@@ -22,8 +24,31 @@ from vector_db_tpu_torch.ops.distance import BIG, l2_sq_pairwise, squared_norms
 from vector_db_tpu_torch.ops.topk import masked_top_k_smallest, merge_top_k
 
 MAX_K = 256
-_QUERIES_PER_CTA = 64   # the kernel's query group for k <= 64 (32 above)
-_CTAS_PER_SM = 8        # target grid: a few waves of resident CTAs
+_TILE_ROWS = 128        # the kernel's corpus tile
+_CTAS_PER_SM = 2        # target grid: two waves of one resident CTA per SM
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = rna_tf32(x) and lo = rna_tf32(x - hi), bit for
+    bit what ``cvt.rna.tf32.f32`` gives for finite f32 values: round to 10
+    explicit mantissa bits, ties away from zero (add half of the 13 dropped
+    bits to the magnitude, then clear them)."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
+def _query_group(b: int, k: int) -> int:
+    """The kernel's queries per CTA: its lists ([group, k]) must fit in
+    shared memory; a smaller batch takes the smallest group that holds
+    it."""
+    nq = 128 if k <= 32 else (64 if k <= 64 else 32)
+    while nq > 32 and nq // 2 >= b:
+        nq //= 2
+    return nq
 
 
 def l2_topk_plain(
@@ -90,29 +115,42 @@ def l2_topk(
     from vector_db_tpu_torch import _build
 
     lib = _build.lib()
-    qc = queries.to(emb.dtype).contiguous()
+    bf16 = emb.dtype == torch.bfloat16
+    if bf16:
+        q_hi, q_lo = queries.to(torch.bfloat16).contiguous(), None
+    else:
+        q_hi, q_lo = split_tf32(queries)
     q_sq = squared_norms(queries).contiguous()
-    blocks = max(1, math.ceil(n / 128))
-    groups = math.ceil(b / (_QUERIES_PER_CTA if k <= 64 else
-                            _QUERIES_PER_CTA // 2))
+    nq = _query_group(b, k)
+    groups = math.ceil(b / nq)
+    blocks = max(1, math.ceil(n / _TILE_ROWS))
     sms = torch.cuda.get_device_properties(emb.device).multi_processor_count
     splits = min(blocks, max(1, math.ceil(_CTAS_PER_SM * sms / groups)))
-    rows_per_split = math.ceil(blocks / splits) * 128
+    rows_per_split = math.ceil(blocks / splits) * _TILE_ROWS
     splits = max(1, math.ceil(n / rows_per_split))
     part_d = torch.empty((b, splits * k), dtype=torch.float32,
                          device=emb.device)
     part_i = torch.empty((b, splits * k), dtype=torch.int32,
                          device=emb.device)
-    with torch.cuda.device(emb.device):
-        err = lib.vdb_l2_topk(
-            qc.data_ptr(), emb.data_ptr(), q_sq.data_ptr(), x_sq.data_ptr(),
-            valid.data_ptr(), b, n, d, k, rows_per_split, splits,
-            int(emb.dtype == torch.bfloat16), part_d.data_ptr(),
-            part_i.data_ptr(), stream_of(emb))
-    _build.check(err, "l2_topk")
-    l2_topk.launches += 1
-    # cross-CTA merge of the per-split lists; (BIG, -1) stays the pad
-    return masked_top_k_smallest(part_d, part_i, k)
+    if b:
+        with torch.cuda.device(emb.device):
+            err = lib.vdb_l2_topk(
+                q_hi.data_ptr(), 0 if bf16 else q_lo.data_ptr(),
+                emb.data_ptr(), q_sq.data_ptr(), x_sq.data_ptr(),
+                valid.data_ptr(), b, n, d, k, nq, rows_per_split, splits,
+                int(bf16), part_d.data_ptr(), part_i.data_ptr(),
+                stream_of(emb))
+        _build.check(err, "l2_topk")
+        l2_topk.launches += 1
+        l2_topk.launches_bf16 += bf16
+    if splits == 1:
+        return part_d, part_i
+    # cross-CTA merge: split s holds columns [s k, s k + k), ascending by
+    # (value, row), and splits ascend by row, so a stable sort by value
+    # keeps ties in row order; (BIG, -1) stays the pad
+    order = torch.sort(part_d, dim=1, stable=True).indices[:, :k]
+    return torch.gather(part_d, 1, order), torch.gather(part_i, 1, order)
 
 
-l2_topk.launches = 0
+l2_topk.launches = 0       # every launch
+l2_topk.launches_bf16 = 0  # the launches over a bf16 table

@@ -3,13 +3,14 @@
 
 Replaces the Pallas kernel
 ``vector_db_tpu/ops/pallas/bitonic_merge.py:sorted_topk``, the pool merge of
-``wide_search(merge_kernel=True)``. One CTA sorts one row (or one
-16,384-wide slice of it) in shared memory; a row wider than 16,384 keys
-takes a second launch over the slices' survivors. The order is total (key,
-then column), so the output is the stable sort's: equal keys come out
-adjacent, in column order. ``presorted`` (a promise that a prefix is
-already ascending) is accepted and not needed: the full sort gives the same
-output.
+``wide_search(merge_kernel=True)``. One CTA takes one row (or one
+16,384-wide slice of it) into shared memory, radix-selects the ``topk``-th
+smallest (key, column) word, keeps the words at or below it and sorts only
+those; a row wider than 16,384 keys takes a second launch over the slices'
+survivors. The order is total (key, then column), so the output is the
+stable sort's: equal keys come out adjacent, in column order, and a run of
+equal keys across the cut keeps its lowest columns. ``presorted`` (a
+promise that a prefix is already ascending) is accepted and not needed.
 
 Dispatch: a CPU tensor takes :func:`sorted_topk_plain`; a CUDA tensor
 launches the kernel or raises. ``sorted_topk.launches`` counts kernel
@@ -26,7 +27,7 @@ import torch
 from vector_db_tpu_torch.ops.cuda import check_cuda_args, stream_of
 
 MAX_TOPK = 8192     # a slice of MAX_WIDTH keeps at most half of itself
-MAX_WIDTH = 16384   # keys per CTA: 128 KiB of (key, column) words
+MAX_WIDTH = 16384   # keys per CTA (64 or 128 KiB of (key, column) words)
 
 
 def sorted_topk_plain(d: torch.Tensor, v: torch.Tensor, topk: int,
