@@ -9,10 +9,12 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
 2. each kernel against its plain PyTorch version on the card: edge shapes
    (ragged N, B = 1, B off the query tile, invalid rows, k above the valid
    rows, duplicate rows; for l2_topk every query group at d = 128 and 768,
-   rows tied across tiles and CTAs, no valid row; for sorted_topk keys
-   tied across the cut, one key, +-0.0, BIG sentinels at the cut, the
-   widest row a CTA holds) and the main path's shapes, with both medians
-   and, for l2_topk, torch.matmul of the same product in each dtype;
+   rows tied across tiles and CTAs, no valid row; for the block scans ds
+   of 32, 100, 128, 200 and 300, m up to 128, B of 1, 70 and 1000, rows
+   tied inside a block and across CTAs; for sorted_topk keys tied across
+   the cut, one key, +-0.0, BIG sentinels at the cut, the widest row a CTA
+   holds) and the main path's shapes, with both medians and torch.matmul
+   of the same product (l2_topk in each dtype, the block scans in bf16);
 3. the main path at real size: FlatIndex over a 1M x 768 embedding-like
    corpus in all four precisions (insert, delete, filter, search_batch at
    B = 1000, k = 10), checked against float64 ground truth and the port's
@@ -72,7 +74,9 @@ CORPUS = 1_000_000      # FlatIndex corpus rows (+ B query rows)
 # scale = ||q||^2 + max ||x||^2 for l2_topk (a near-zero distance is the
 # difference of terms that large), the largest LUT sum plus the largest
 # |corr| for adc_probe (the residual correction cancels ||q||^2 out of the
-# LUT sum), and 0 for the block scans and adc_topk
+# LUT sum), max |xsq_eff live| + 2 ||q|| max ||x|| for the block scans (the
+# bf16 table's products run on tensor cores, in another order than the
+# plain product), and 0 for adc_topk
 RTOL, ATOL = 1e-5, 1e-4
 LIVE = 1e37             # below this a value belongs to a real row
 # phase 4: the IVF-PQ benchmark setting (scripts/bench_sift.py:66, :195-201)
@@ -174,6 +178,9 @@ def check_topk(name, got_v, got_i, want_v, want_i, group: int,
     gv, wv = got_v.cpu().double().numpy(), want_v.cpu().double().numpy()
     gv = gv.reshape(-1, group)
     wv = wv.reshape(gv.shape[0], -1)
+    if wv.shape[1] not in (group, group + 1):
+        raise AssertionError(f"{name}: {group} columns against "
+                             f"{wv.shape[1]}")
     after = wv[:, group:]              # the (k+1)-th value, or nothing
     wv = wv[:, :group]
     scale = np.broadcast_to(np.asarray(scale, np.float64).reshape(-1, 1),
@@ -243,17 +250,59 @@ def phase_kernels(torch, dev, kernels):
         tab[1:dups] = tab[0]
         xsq = torch.rand(n, generator=gen, device=dev) * 10
         xsq[1:dups] = xsq[0]
+        if n > 256:  # equal rows in other threads and quads of block 1
+            tab[[131, 194, 255]] = tab[3].clone()
+            xsq[[131, 194, 255]] = xsq[3].clone()
         xsq[::invalid_every] = 2e38
         q = randn(b, ds)
         tab = tab.to(dtype)
         vals, rows = block_topm_scan(q, tab, xsq, m=m)
-        pv, pr = block_topm_plain(q, tab, xsq, m)
-        e1 = check_topk(f"block_topm {dtype} n={n} b={b} m={m}", vals, rows,
-                        pv, pr, group=m)
-        e2 = check_topk(f"block_min {dtype} n={n} b={b}",
+        # one more column: a near-tie across the m-th place is no difference
+        pv, pr = block_topm_plain(q, tab, xsq, min(m + 1, 128))
+        scale = block_terms(q, tab, xsq)
+        e1 = check_topk(f"block_topm {dtype} n={n} ds={ds} b={b} m={m}",
+                        vals, rows, pv, pr, group=m, scale=scale)
+        e2 = check_topk(f"block_min {dtype} n={n} ds={ds} b={b}",
                         block_min_scan(q, tab, xsq), None,
-                        block_min_plain(q, tab, xsq), None, group=1)
+                        block_min_plain(q, tab, xsq), None, group=1,
+                        scale=scale)
         return e1, e2
+
+    def block_terms(q, tab, xsq):
+        """Per output row (query, block): max |xsq_eff live| + 2 ||q||
+        max ||x||."""
+        live = xsq[xsq < LIVE]
+        top = live.abs().max() if live.numel() else xsq.new_zeros(())
+        s = top + 2 * q.norm(dim=1) * tab.float().norm(dim=1).max()
+        return np.repeat(s.cpu().numpy(), -(-tab.shape[0] // 128))
+
+    def block_ties(dtype, b):
+        """Copies of one row are the best rows of their blocks: rows 3, 66
+        and 127 (other threads and quads of one block) come out in row
+        order with equal values, and copies in other blocks (other CTAs)
+        score the same value."""
+        n, m = 4096 + 70, 4
+        x = randn(n, 128)
+        copies = [3, 66, 127, 130, 255, 1000, 3000, 4100]
+        x[copies] = x[copies[0]].clone()
+        xsq = torch.full((n,), 1e4, device=dev)
+        xsq[copies] = 0.0
+        vals, rows = block_topm_scan(randn(b, 128), x.to(dtype), xsq, m=m)
+        vals = vals.view(b, -1, m).cpu()
+        rows = rows.view(b, -1, m).cpu()
+        top = vals[:, 0, :1]
+        if not ((rows[:, 0, :3] == torch.tensor([3, 66, 127])).all()
+                and (rows[:, 1, :2] == torch.tensor([130, 255])).all()
+                and (rows[:, [7, 23, 32], 0]
+                     == torch.tensor([1000, 3000, 4100])).all()
+                and (vals[:, 0, :3] == top).all()
+                and (vals[:, 1, :2] == top).all()):
+            raise AssertionError(f"block_topm {dtype} b={b}: a tie did not "
+                                 "go to the lower row")
+        if ((vals[:, [7, 23, 32], 0] - top).abs()
+                > ATOL + RTOL * top.abs()).any():
+            raise AssertionError(f"block_topm {dtype} b={b}: copies in other "
+                                 "blocks score other values")
 
     def terms(q, x_sq):
         return ((q * q).sum(-1) + x_sq.max()).cpu().numpy()
@@ -413,11 +462,17 @@ def phase_kernels(torch, dev, kernels):
             err["l2_topk"] = max(err["l2_topk"],
                                  l2_case(n, d, b, k, dtype, valid_rows=vr))
         for n, ds, b, m in ((1000, 128, 1, 2), (4096 + 70, 200, 70, 4),
-                            (300, 32, 5, 1)):
+                            (300, 32, 5, 1), (4096 + 70, 100, 1000, 16),
+                            (1000, 128, 70, 128), (300, 200, 1000, 1),
+                            (4096 + 70, 32, 70, 128),
+                            (4096 + 70, 128, 1000, 2),
+                            (1000, 300, 70, 2)):  # bf16 past the wgmma path
             e1, e2 = block_case(n, ds, b, m, dtype)
             err["block_topm"] = max(err["block_topm"], e1)
             err["block_min"] = max(err["block_min"], e2)
-    log(f"phase 2 edge shapes ok: max abs err {err}")
+        for b in (3, 130):
+            block_ties(dtype, b)
+    log(f"phase 2 edge shapes and block ties ok: max abs err {err}")
 
     # the main path's shapes
     q = randn(B, DIM)
@@ -459,13 +514,21 @@ def phase_kernels(torch, dev, kernels):
     xsq[::97] = 2e38
     qs = randn(B, DS)
     vals, rows = block_topm_scan(qs, tab, xsq, m=M_2P)
-    pv, pr = block_topm_plain(qs, tab, xsq, M_2P)
-    e = check_topk("block_topm main", vals, rows, pv, pr, group=M_2P)
+    pv, pr = block_topm_plain(qs, tab, xsq, M_2P + 1)
+    scale = block_terms(qs, tab, xsq)
+    e = check_topk("block_topm main", vals, rows, pv, pr, group=M_2P,
+                   scale=scale)
     err["block_topm"] = max(err["block_topm"], e)
     mins = block_min_scan(qs, tab, xsq)
     e2 = check_topk("block_min main", mins, None,
-                    block_min_plain(qs, tab, xsq), None, group=1)
+                    block_min_plain(qs, tab, xsq), None, group=1,
+                    scale=scale)
     err["block_min"] = max(err["block_min"], e2)
+    del vals, rows, pv, pr, mins
+    qc = (qs * -2.0).to(torch.bfloat16)
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(qc, tab.T))
+    log(f"torch.matmul [{B},{DS}] x [{DS},{N_MAIN}] in bf16 (the block "
+        f"scans' product alone, not the same function): {mm_ms:.3f} ms")
     for name, fn, plain in (
             ("block_topm", lambda: block_topm_scan(qs, tab, xsq, m=M_2P),
              lambda: block_topm_plain(qs, tab, xsq, M_2P)),
@@ -478,7 +541,8 @@ def phase_kernels(torch, dev, kernels):
                   2.0 * B * N_MAIN * DS, BF16_TC_FLOPS)
         log(f"{name} bf16 table N={N_MAIN} ds={DS} B={B}"
             f"{' m=%d' % M_2P if name == 'block_topm' else ''}: "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{kernels[name]['bound_ms']:.4f} ms")
     # adc_topk at the main path's shape (PQCodec.adc_search's int32 codes)
     lut = randn(ADC_B, PQ_M, PQ_KSUB) ** 2
     codes = torch.randint(0, PQ_KSUB, (N_MAIN, PQ_M), generator=gen,
@@ -619,6 +683,11 @@ def phase_main_path(torch, kernels):
         if c <= 0:
             raise AssertionError(f"{name}: no launch on the main path")
         kernels[name]["launches"] = c
+    log(f"block scans on the main path: blocksel launched block_min "
+        f"{counts['block_min']} times, recall@{K} {recalls['blocksel']} >= "
+        f"{floors['blocksel']}; blocksel2p launched block_topm "
+        f"{counts['block_topm']} times, recall@{K} {recalls['blocksel2p']} "
+        f">= {floors['blocksel2p']} (against the port's f32 scan)")
 
 
 def adc_terms(lut, corr):

@@ -154,27 +154,82 @@ def test_l2_topk_f32_within_float64_bound(cuda):
             <= (1 + 1e-5) * kth[:, None]).all()
 
 
+def _block_terms(q, tab, xsq):
+    """Per output row (query, block): max |xsq_eff live| + 2 ||q|| max ||x||.
+    The bf16 table's products run on tensor cores, whose sum runs in
+    another order than the plain product's, so a score errs relative to
+    the size of the terms it is the sum of, not to itself."""
+    live = xsq[xsq < 1e37]
+    top = live.abs().max() if live.numel() else xsq.new_zeros(())
+    s = top + 2 * q.norm(dim=1) * tab.float().norm(dim=1).max()
+    return np.repeat(n(s), -(-tab.shape[0] // 128))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nrows,ds,b,m", [(1000, 128, 1, 2),
-                                          (4096 + 70, 200, 70, 4)])
+@pytest.mark.parametrize("nrows,ds,b,m", [
+    (1000, 128, 1, 2),            # the main path's ds and m, B = 1
+    (4096 + 70, 200, 70, 4),      # TMA zero-fills past ds = 200
+    (300, 32, 5, 1),              # 64-byte rows: element loads
+    (4096 + 70, 100, 1000, 16),   # 200-byte rows: element loads; 8 groups
+    (1000, 128, 70, 128),         # m = 128: every row of a block
+    (300, 200, 1000, 1),
+    (4096 + 70, 32, 70, 128),
+    (4096 + 70, 128, 1000, 2),
+    (1000, 300, 70, 2)])          # bf16 too wide for the tensor-core path
 def test_block_kernels_match_plain(cuda, dtype, nrows, ds, b, m):
     rng = np.random.default_rng(5)
     tab = _tensor(rng, (nrows, ds), cuda)
     tab[1:200] = tab[0]                # one block of equal rows: first match
+    tab[[131, 194, 255]] = tab[3].clone()  # other threads and quads of a block
     xsq = torch.from_numpy((rng.random(nrows) * 10).astype(np.float32)).to(
         cuda)
     xsq[1:200] = xsq[0]
+    xsq[[131, 194, 255]] = xsq[3].clone()
     xsq[::13] = 2e38                   # invalid rows
     q = _tensor(rng, (b, ds), cuda)
     tab = tab.to(dtype)
+    before = (block_topm_scan.launches, block_min_scan.launches)
     vals, rows = block_topm_scan(q, tab, xsq, m=m)
     mins = block_min_scan(q, tab, xsq)
     torch.cuda.synchronize()
-    pv, pr = block_topm_plain(q, tab, xsq, m)
+    assert (block_topm_scan.launches, block_min_scan.launches) == (
+        before[0] + 1, before[1] + 1)
+    mw = min(m + 1, 128)  # the next value too: near-ties at the m-th place
+    pv, pr = block_topm_plain(q, tab, xsq, mw)
+    scale = _block_terms(q, tab, xsq)
     assert_topk_parity(n(vals).reshape(-1, m), n(rows).reshape(-1, m),
-                       n(pv).reshape(-1, m), n(pr).reshape(-1, m),
-                       rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(n(mins), n(block_min_plain(q, tab, xsq)),
+                       n(pv).reshape(-1, mw), n(pr).reshape(-1, mw),
+                       rtol=1e-5, atol=1e-4, scale=scale, extra=mw - m)
+    assert_topk_parity(n(mins).reshape(-1, 1), np.zeros((mins.numel(), 1)),
+                       n(block_min_plain(q, tab, xsq)).reshape(-1, 1),
+                       np.zeros((mins.numel(), 1)), rtol=1e-5, atol=1e-4,
+                       scale=scale)
+
+
+@pytest.mark.parametrize("b", [3, 130])   # one query group, two
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_topm_lower_row_wins_ties(cuda, dtype, b):
+    """Copies of one row are the best rows of their blocks: in one block
+    they land in different threads and quads (rows 3, 66, 127) and come out
+    in row order with equal values; copies in other blocks (and so other
+    CTAs) score the same value."""
+    rng = np.random.default_rng(14)
+    nrows, m = 4096 + 70, 4
+    x = _tensor(rng, (nrows, 128), cuda)
+    copies = [3, 66, 127, 130, 255, 1000, 3000, 4100]
+    x[copies] = x[copies[0]].clone()
+    xsq = torch.full((nrows,), 1e4, device=cuda)
+    xsq[copies] = 0.0
+    q = _tensor(rng, (b, 128), cuda)
+    vals, rows = block_topm_scan(q, x.to(dtype), xsq, m=m)
+    vals, rows = n(vals).reshape(b, -1, m), n(rows).reshape(b, -1, m)
+    assert (rows[:, 0, :3] == [3, 66, 127]).all()
+    assert (rows[:, 1, :2] == [130, 255]).all()
+    assert (rows[:, [7, 23, 32], 0] == [1000, 3000, 4100]).all()
+    assert (vals[:, 0, :3] == vals[:, 0, :1]).all()
+    assert (vals[:, 1, :2] == vals[:, 0, :1]).all()
+    np.testing.assert_allclose(vals[:, [7, 23, 32], 0],
+                               np.repeat(vals[:, 0, :1], 3, axis=1),
                                rtol=1e-5, atol=1e-4)
 
 

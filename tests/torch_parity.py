@@ -24,15 +24,22 @@ def n(a):
 
 
 def assert_topk_parity(d_got, i_got, d_want, i_want, rtol=RTOL, atol=ATOL,
-                       scale=0.0):
+                       scale=0.0, extra=0):
     """Rows of ascending (values, ids): values agree within the tolerance,
     the -1 pads sit in the same places, and ids are equal wherever a value
     is apart from its neighbours by more than the tolerance (between tied
     values either member may legitimately come first). ``scale`` (scalar or
     one per row) adds rtol * scale to the tolerance: a distance computed as
-    q_sq - 2 q.x + x_sq errs relative to its terms, not to itself."""
+    q_sq - 2 q.x + x_sq errs relative to its terms, not to itself. With
+    ``extra=1`` the want carries one more column than got, the next value,
+    so that a near-tie across the last place is not read as a difference."""
     d_got, i_got, d_want, i_want = (n(a) for a in (d_got, i_got, d_want,
                                                    i_want))
+    assert d_want.shape[-1] == d_got.shape[-1] + extra
+    assert i_want.shape[-1] == i_got.shape[-1] + extra
+    after = d_want[..., d_got.shape[-1]:].astype(np.float64)
+    d_want = d_want[..., :d_got.shape[-1]]
+    i_want = i_want[..., :i_got.shape[-1]]
     assert d_got.shape == d_want.shape and i_got.shape == i_want.shape
     d = d_want.astype(np.float64)
     scale = np.asarray(n(scale), np.float64)
@@ -49,6 +56,8 @@ def assert_topk_parity(d_got, i_got, d_want, i_want, rtol=RTOL, atol=ATOL,
     apart = np.ones(d.shape, bool)
     apart[..., 1:] &= gap > tol[..., 1:]
     apart[..., :-1] &= gap > tol[..., :-1]
+    if after.shape[-1]:
+        apart[..., -1] &= np.abs(after[..., 0] - d[..., -1]) > tol[..., -1]
     np.testing.assert_array_equal(i_got[apart], i_want[apart])
 
 

@@ -74,6 +74,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "topk_list.cuh"
 
 using namespace vdb;
@@ -83,7 +84,6 @@ namespace {
 constexpr int kTileRows = 128;            // corpus rows per tile
 constexpr int kConsumers = 256;           // two warpgroups of 64 rows each
 constexpr int kThreads = kConsumers + 32; // + the producer warp
-constexpr int kSwz = 128;                 // bytes of a swizzled row chunk
 constexpr int kSRow = kTileRows + 4;      // score tile row stride (floats)
 constexpr int kMaxStages = 6;
 constexpr int kSmemLimit = 232448;        // H100: opt-in bytes per block
@@ -112,78 +112,10 @@ __host__ __device__ inline Layout layout(bool f32, int nq, int k,
   return L;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// one arrival on bar that also expects `bytes` of TMA traffic
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// TMA: the box at (column c0, row c1) of a 2-D tensor map into shared
-// memory, counted on bar
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
-                                       uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
 __device__ __forceinline__ uint32_t rna_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
-}
-
-// K-major operand, 128-byte swizzle: 8-row atoms of 1024 bytes
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * kSwz + ((c ^ (r & 7)) << 4));
-}
-
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64 x N] += A[64 x K] (registers) * B[K x N] (shared memory, through a
@@ -294,28 +226,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-// Producer without TMA (rows not 16-byte aligned, or narrower than one
-// chunk): rows [row0, row0 + nrows) x the 128 bytes of chunk kc of a
-// row-major [*, d] matrix into a swizzled tile, by element loads; zeros at
-// rows >= rlim and columns >= d.
-template <typename T>
-__device__ __forceinline__ void fill(uint8_t* tile, const T* __restrict__ src,
-                                     int64_t row0, int nrows, int64_t rlim,
-                                     int d, int kc, int lane) {
-  constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte chunk
-  for (int e = lane; e < nrows * 8; e += 32) {
-    const int r = e >> 3, c = e & 7;
-    const int64_t row = row0 + r;
-    const int col = kc * (kSwz / (int)sizeof(T)) + c * kPer;
-    uint4 pack = make_uint4(0u, 0u, 0u, 0u);
-    T* v = reinterpret_cast<T*>(&pack);
-#pragma unroll
-    for (int u = 0; u < kPer; ++u)
-      if (row < rlim && col + u < d) v[u] = src[row * d + col + u];
-    *reinterpret_cast<uint4*>(tile + swz(r, c)) = pack;
-  }
 }
 
 // NQ: the query group, 32, 64 or 128.
@@ -603,52 +513,6 @@ l2_topk_kernel(const void* __restrict__ q_in, const float* __restrict__ q_lo,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime (the
-// library does not link libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// a [rows, d] row-major matrix in boxes of 128 bytes of columns x box_rows
-// rows, 128-byte swizzled, zeros outside
-int make_map(CUtensorMap* map, const void* base, bool f32, int64_t rows,
-             int d, int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return (int)cudaErrorNotSupported;
-  const int el = f32 ? 4 : 2;
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * el};
-  const cuuint32_t box[2] = {(cuuint32_t)(kSwz / el), (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = enc(
-      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      2, const_cast<void*>(base), dims, strides, box, step,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <bool kF32, int NQ>
 int launch(const void* q, const float* q_lo, const void* emb,
            const float* qsq, const float* xsq, const uint8_t* valid, int B,
@@ -664,11 +528,8 @@ int launch(const void* q, const float* q_lo, const void* emb,
   if (stages < 2) return (int)cudaErrorInvalidValue;
   const size_t smem = layout(kF32, NQ, k, stages).total;
   const int el = kF32 ? 4 : 2;
-  // TMA needs 16-byte aligned rows; a table narrower than one chunk takes
-  // the element loads too
-  const bool tma = (d * el) % 16 == 0 && d * el >= kSwz &&
-                   ((uintptr_t)q | (uintptr_t)emb |
-                    (uintptr_t)(kF32 ? q_lo : q)) % 16 == 0;
+  const bool tma = tma_ok(q, d, el) && tma_ok(emb, d, el) &&
+                   (!kF32 || tma_ok(q_lo, d, el));
   CUtensorMap tm_q{}, tm_qlo{}, tm_x{};
   if (tma) {
     int e = make_map(&tm_q, q, kF32, B, d, NQ);

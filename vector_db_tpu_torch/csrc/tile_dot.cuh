@@ -1,4 +1,5 @@
-// Core of the port's block-scan kernels (block_select.cu).
+// Core of block_select.cu's CUDA-core path (f32 tables, and bf16 rows too
+// wide for its tensor-core path).
 //
 // A CTA of 8 warps scores one tile of 128 corpus rows against a group of
 // queries. Both operands are staged into shared memory as f32, 64 columns at
