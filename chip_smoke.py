@@ -53,7 +53,9 @@ limit. Without a CUDA device it prints no result and exits 1.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
+import math
 import random
 import statistics
 import subprocess
@@ -111,25 +113,59 @@ HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_TC_FLOPS = 495e12
 BF16_TC_FLOPS = 989e12
+BOOST_MHZ = None        # the card's max SM clock (nvidia-smi), set in main
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+SPAN_MS = 2.0           # cuda_ms: least device span one timing covers
+SLEEP_CYCLES_S = 2.0e9  # torch.cuda._sleep cycles a second (~ the SM clock)
+
+
 def cuda_ms(torch, fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` in ms (CUDA events), after one warm-up."""
+    """Device time of one call of ``fn`` in ms: the median over ``reps``
+    spans of CUDA events, each around a loop of back-to-back calls (enough
+    for ~SPAN_MS ms, from a first host-clock reading) divided by the count.
+    Each span starts behind a device sleep as long as the loop's host time,
+    so the host has queued every call before the first runs: a kernel
+    shorter than its wrapper's host work is timed by the device, not by
+    the host."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    calls = max(1, math.ceil(SPAN_MS / first_ms))
+    head_start = int(calls * first_ms * 1e-3 * SLEEP_CYCLES_S)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(head_start)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def l2_cold(torch, fn, *args):
+    """A call of ``fn`` that reads its inputs from HBM, not from L2: it
+    cycles over copies of ``args`` (tensors) whose bytes together pass 3x
+    the L2 size, so a copy's lines are gone before its next call. For
+    inputs that fit in L2, which back-to-back calls on one set would
+    otherwise read from there."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    sets = [args] + [tuple(a.clone() for a in args)
+                     for _ in range(math.ceil(3 * l2 / nbytes) - 1)]
+    turn = itertools.cycle(sets)
+    return lambda: fn(*next(turn))
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -307,22 +343,33 @@ def phase_kernels(torch, dev, kernels):
     def terms(q, x_sq):
         return ((q * q).sum(-1) + x_sq.max()).cpu().numpy()
 
-    def adc_probe_case(b, p, m, ksub):
+    def adc_probe_case(b, cells, width, m, ksub, offset=0):
+        """P = cells * width slots, live for a random prefix of each cell
+        (the padded cell table's long dead runs); codes at ``offset``
+        bytes from an aligned base."""
+        p = cells * width
         lut = randn(b, m, ksub) ** 2
-        codes = torch.randint(0, ksub, (b, p, m), generator=gen, device=dev,
-                              dtype=torch.uint8)
+        flat = torch.randint(0, ksub, (b * p * m + offset,), generator=gen,
+                             device=dev, dtype=torch.uint8)
+        codes = flat[offset:].view(b, p, m)
         codes[:, 1] = codes[:, 0]
         corr = randn(b, p)
-        valid = torch.rand(b, p, generator=gen, device=dev) > 0.2
+        live = torch.randint(0, width + 1, (b, cells, 1), generator=gen,
+                             device=dev)
+        valid = (torch.arange(width, device=dev) < live).reshape(b, p)
         got = adc_probe_scores(lut, codes, corr, valid)
         want = adc_probe_plain(lut, codes, corr, valid)
-        return check_topk(f"adc_probe b={b} p={p} m={m} ksub={ksub}", got,
-                          None, want, None, group=p,
-                          scale=adc_terms(lut, corr))
+        return check_topk(f"adc_probe b={b} p={p} m={m} ksub={ksub} "
+                          f"offset={offset}", got, None, want, None,
+                          group=p, scale=adc_terms(lut, corr))
 
-    def adc_topk_case(n, m, ksub, b, k, dtype, valid_rows=None):
+    def adc_topk_case(n, m, ksub, b, k, dtype, valid_rows=None,
+                      wild=False):
+        """``wild``: int32 codes in [-300, ksub + 300), which clamp (never
+        wrap): the kernel gives the clamped uint8 table's result exactly."""
         lut = randn(b, m, ksub) ** 2
-        codes = torch.randint(0, ksub, (n, m), generator=gen, device=dev,
+        lo, hi = (-300, ksub + 300) if wild else (0, ksub)
+        codes = torch.randint(lo, hi, (n, m), generator=gen, device=dev,
                               dtype=dtype)
         codes[1:6] = codes[0]
         valid = torch.ones(n, dtype=torch.bool, device=dev)
@@ -331,8 +378,37 @@ def phase_kernels(torch, dev, kernels):
             valid[valid_rows:] = False
         got = adc_topk(lut, codes, valid, k)
         want = adc_topk_plain(lut, codes, valid, k + 1)
-        return check_topk(f"adc_topk {dtype} n={n} m={m} ksub={ksub} b={b} "
-                          f"k={k}", *got, *want, group=k)
+        name = (f"adc_topk {dtype} n={n} m={m} ksub={ksub} b={b} k={k}"
+                f"{' wild codes' if wild else ''}")
+        if wild:
+            same = adc_topk(lut, codes.clamp(0, ksub - 1).to(torch.uint8),
+                            valid, k)
+            if not (torch.equal(got[0], same[0])
+                    and torch.equal(got[1], same[1])):
+                raise AssertionError(f"{name}: differs from the clamped "
+                                     "uint8 table")
+        return check_topk(name, *got, *want, group=k)
+
+    def adc_ties(b, k):
+        """Copies of the best row in one warp, in other tiles and in other
+        corpus splits come out in row order; no valid row gives pads."""
+        n = 300000
+        lut = randn(b, 16, 256) ** 2 + 1.0
+        lut[:, :, 0] = 0.0
+        codes = torch.randint(1, 256, (n, 16), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        copies = [7, 8, 300, 41000, 150001, n - 1]
+        codes[copies] = 0
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        d, ids = adc_topk(lut, codes, valid, k)
+        run = min(k, len(copies))
+        if ids[:, :run].cpu().tolist() != [copies[:run]] * b or \
+                (d[:, :run] != 0).any():
+            raise AssertionError(f"adc_topk b={b} k={k}: a tie did not go "
+                                 "to the lower row")
+        d, ids = adc_topk(lut, codes, torch.zeros_like(valid), k)
+        if not ((d >= 3e38).all() and (ids == -1).all()):
+            raise AssertionError("adc_topk: no valid row, yet a live entry")
 
     def sorted_case(b, n, topk, dtype, presorted=0, ties=False):
         d = randn(b, n)
@@ -442,18 +518,37 @@ def phase_kernels(torch, dev, kernels):
         err["sorted_topk"] = max(err["sorted_topk"], sorted_case(*args, **kw))
     log(f"phase 2 sorted_topk edge shapes ok: keys and payloads equal the "
         f"plain version's, max abs err {err['sorted_topk']}")
-    for m in (4, 8, 16):
+    for m in (4, 6, 8, 16, 32):  # 6: the generic m
         for ksub in (16, 256):
-            for b, p in ((1, 70), (7, 1000 + 3)):
-                err["adc_probe"] = max(err["adc_probe"],
-                                       adc_probe_case(b, p, m, ksub))
+            for b, cells, width, offset in ((1, 1, 70, 0), (7, 16, 63, 0),
+                                            (5, 16, 113, 1)):
+                err["adc_probe"] = max(err["adc_probe"], adc_probe_case(
+                    b, cells, width, m, ksub, offset))
             for dtype in (torch.uint8, torch.int32):
-                for n, b, k, vr in ((1000 + 7, 1, 10, None),
-                                    (5000 + 70, 9, 100, None),
+                for n, b, k, vr in ((1000 + 7, 1, 1, None),
+                                    (5000 + 70, 70, 100, None),
+                                    (5000 + 70, 128, 256, None),
                                     (300, 3, 256, 200)):  # k > valid rows
                     err["adc_topk"] = max(err["adc_topk"], adc_topk_case(
                         n, m, ksub, b, k, dtype, valid_rows=vr))
-    log(f"phase 2 adc edge shapes ok: max abs err {err}")
+            err["adc_topk"] = max(err["adc_topk"], adc_topk_case(
+                20000 + 5, m, ksub, 70, 50, torch.int32, wild=True))
+    # many subspaces: 4-bit PQ of 768-d rows (192 x 4 bits), and a LUT that
+    # leaves room for one query and a shorter tile
+    for m, ksub in ((192, 16), (160, 256)):
+        for dtype in (torch.uint8, torch.int32):
+            err["adc_topk"] = max(err["adc_topk"], adc_topk_case(
+                3000 + 7, m, ksub, 5, 10, dtype))
+    for m, ksub in ((240, 16), (200, 256)):
+        err["adc_probe"] = max(err["adc_probe"], adc_probe_case(
+            3, 4, 75, m, ksub))
+    for b in (3, 128):
+        for k in (2, 10):
+            adc_ties(b, k)
+    log(f"phase 2 adc edge shapes ok (m 4, 6, 8, 16, 32, 160-240; ksub 16, "
+        f"256; B 1, 70, 128; k 1, 100, 256; ragged N and P; dead runs; codes "
+        f"off alignment; int32 codes out of range clamp; ties across tiles and "
+        f"splits; no valid row): max abs err {err}")
     for dtype in (torch.float32, torch.bfloat16):
         for n, d, b, k, vr in ((1000, 64, 1, 10, None),
                                (5000 + 70, 200, 70, 100, None),
@@ -561,9 +656,29 @@ def phase_kernels(torch, dev, kernels):
     set_bound(kernels["adc_topk"],
               N_MAIN * (PQ_M * 4 + 1) + ADC_B * PQ_M * PQ_KSUB * 4
               + ADC_B * ADC_K * 8, float(ADC_B) * N_MAIN * PQ_M, F32_FLOPS)
+    # the lookup floor: B * N * m shared-memory lookups of 4 bytes at one
+    # 32-lane wavefront (128 bytes) per SM per clock, at the boost clock
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lookups = float(ADC_B) * N_MAIN * PQ_M
+    floor_ms = lookups / (32.0 * sms * BOOST_MHZ * 1e6) * 1e3
     log(f"adc_topk int32 codes N={N_MAIN} m={PQ_M} ksub={PQ_KSUB} B={ADC_B} "
-        f"k={ADC_K}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"max abs err {e}")
+        f"k={ADC_K} (the narrowing to uint8 included): kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, max abs err {e}; bound "
+        f"{kernels['adc_topk']['bound_ms']:.4f} ms "
+        f"({kernels['adc_topk']['bound_by']}); lookup floor {floor_ms:.4f} "
+        f"ms ({lookups:.3g} lookups, {sms} SMs at {BOOST_MHZ} MHz), kernel "
+        f"at {ms / floor_ms:.2f}x the floor")
+    c8 = codes.to(torch.uint8)
+    ms_u8 = cuda_ms(torch, lambda: adc_topk(lut, c8, valid, ADC_K))
+    log(f"adc_topk uint8 codes (no narrowing pass), same shape: kernel "
+        f"{ms_u8:.3f} ms")
+    # B off the query group: the last group's CTAs hold padded query slots
+    ms_ragged = cuda_ms(torch, lambda: adc_topk(lut[:100], codes, valid,
+                                                ADC_K))
+    log(f"adc_topk int32 codes, B=100 (the last group of 8 half padded): "
+        f"kernel {ms_ragged:.3f} ms, {ms_ragged / ms * 128 / 100:.3f}x "
+        f"B=128's time a query")
+    del c8
     del lut, codes, valid, got, want
     for name in err:
         kernels[name]["max_abs_err"] = max(err[name],
@@ -796,9 +911,12 @@ def phase_ivf_pq(torch, kernels):
     counts = {"adc_probe": adc_probe_scores.launches,
               "adc_topk": adc_topk.launches, "l2_topk": l2_topk.launches}
     log(f"launch counts on the IVF search path: {counts}")
+    probe_row_ms = None
     for name, kw in modes.items():
-        profile(torch, name, lambda: ivf.search_batch(batches[0], N_PROBE, K,
-                                                      **kw))
+        rows = profile(torch, name, lambda: ivf.search_batch(
+            batches[0], N_PROBE, K, **kw))
+        if name == "ivf_pq":
+            probe_row_ms = kernel_row_ms(rows, "adc_probe_kernel")
     if counts["adc_probe"] <= 0:
         raise AssertionError("adc_probe: no launch on the IVF-PQ path")
     kernels["adc_probe"]["launches"] = counts["adc_probe"]
@@ -843,16 +961,30 @@ def phase_ivf_pq(torch, kernels):
                    group=p_cand, scale=adc_terms(lut, corr))
     kernels["adc_probe"]["max_abs_err"] = max(
         kernels["adc_probe"]["max_abs_err"], e)
-    ms = cuda_ms(torch, lambda: adc_probe_scores(lut, codes, corr, ok))
-    plain_ms = cuda_ms(torch, lambda: adc_probe_plain(lut, codes, corr, ok))
+    # its inputs (~29 MB) fit in the 50 MB L2: the line's times read them
+    # from HBM, as the search does (each call gathers new candidates)
+    ms = cuda_ms(torch, l2_cold(torch, adc_probe_scores, lut, codes, corr,
+                                ok))
+    plain_ms = cuda_ms(torch, l2_cold(torch, adc_probe_plain, lut, codes,
+                                      corr, ok))
+    warm_ms = cuda_ms(torch, lambda: adc_probe_scores(lut, codes, corr, ok))
     kernels["adc_probe"].update(ms=ms, plain_ms=plain_ms)
-    # reads: uint8 codes, LUTs, corr, mask; writes the f32 scores
+    # what any implementation moves: mask, corr and the scores in full,
+    # the codes of the live candidates only, each query's LUT once
+    live = int(ok.sum())
     set_bound(kernels["adc_probe"],
-              nb * p_cand * (PQ_M + 4 + 1 + 4) + nb * PQ_M * PQ_KSUB * 4,
-              float(nb) * p_cand * (PQ_M + 1), F32_FLOPS)
+              nb * p_cand * (1 + 4 + 4) + live * PQ_M
+              + nb * PQ_M * PQ_KSUB * 4,
+              float(live) * (PQ_M + 1), F32_FLOPS)
     log(f"adc_probe B={nb} P={p_cand} (L={cell_slots.shape[1]}) m={PQ_M} "
-        f"ksub={PQ_KSUB}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"max abs err {e}")
+        f"ksub={PQ_KSUB}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"max abs err {e}; live candidates {live} of {nb * p_cand} "
+        f"({live / (nb * p_cand):.3f}); bound "
+        f"{kernels['adc_probe']['bound_ms']:.4f} ms "
+        f"({kernels['adc_probe']['bound_by']}), kernel at "
+        f"{ms / kernels['adc_probe']['bound_ms']:.2f}x (inputs from HBM); "
+        f"inputs in L2 (one set back to back) {warm_ms:.4f} ms; profiler "
+        f"adc_probe_kernel {probe_row_ms} ms a launch in the ivf_pq profile")
     peak = torch.cuda.max_memory_allocated()
     del cell_slots, cell_codes, cell_s, lut, codes, corr, ok, slots
 
@@ -898,10 +1030,10 @@ def phase_ivf_pq(torch, kernels):
         f"({peak / 2**30:.2f} GiB)")
 
 
-def profile(torch, label, fn, reps: int = 3) -> None:
+def profile(torch, label, fn, reps: int = 3):
     """Device busy time of ``reps`` calls of ``fn`` under torch.profiler
     (the sum of the CUDA rows of key_averages), its idle share of the wall
-    time, and the largest device items."""
+    time, and the largest device items. Returns the CUDA rows."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profiler
 
@@ -919,13 +1051,24 @@ def profile(torch, label, fn, reps: int = 3) -> None:
     busy = sum(r.self_device_time_total for r in rows) / reps / 1e6
     if busy <= 0:
         log(f"{label} profile: no device time in the trace (not measured)")
-        return
+        return rows
     top = sorted(rows, key=lambda r: -r.self_device_time_total)[:6]
     log(f"{label} profile: wall {wall * 1e3:.1f} ms/call, device busy "
         f"{busy * 1e3:.1f} ms/call, idle share {1 - busy / wall:.3f}; "
         "largest: " + "; ".join(
             f"{r.key[:48]} {r.self_device_time_total / reps / 1e3:.2f} ms "
             f"({r.count // reps}x)" for r in top))
+    return rows
+
+
+def kernel_row_ms(rows, name):
+    """Device ms a launch of the kernel whose profiler row names ``name``
+    (None where the trace has no such row)."""
+    hits = [r for r in rows if name in r.key]
+    if not hits:
+        return None
+    return (sum(r.self_device_time_total for r in hits) / 1e3
+            / sum(r.count for r in hits))
 
 
 def exact_distances(name, x, queries, dists, ids) -> None:
@@ -1020,9 +1163,12 @@ def phase_hnsw(torch, kernels):
             "host-clock reps)")
     calls = 1 + len(batches)
     log(f"sorted_topk launches per mode: {launches} over {calls} calls each")
+    sorted_row_ms = None
     for name, kw in modes.items():
         call = idx.search_batch if name == "classic" else idx.search_batch_wide
-        profile(torch, name, lambda: call(batches[0], **kw))
+        rows = profile(torch, name, lambda: call(batches[0], **kw))
+        if name == "wide_merge_kernel":
+            sorted_row_ms = kernel_row_ms(rows, "sorted_topk_kernel")
     if launches["wide_merge_kernel"] != WIDE_T * calls or \
             launches["wide"] or launches["classic"]:
         raise AssertionError(f"sorted_topk: expected {WIDE_T} launches per "
@@ -1103,7 +1249,9 @@ def phase_hnsw(torch, kernels):
         f"topk={topk} (the merge input of step {WIDE_T // 2}): kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.topk + gather "
         f"{library_ms:.3f} ms, bound {kernels['sorted_topk']['bound_ms']:.4f}"
-        f" ms; keys equal, payloads equal within runs of equal keys")
+        f" ms; keys equal, payloads equal within runs of equal keys; "
+        f"profiler sorted_topk_kernel {sorted_row_ms} ms a launch in the "
+        f"wide_merge_kernel profile (all steps' shapes)")
     log(f"HNSW summary: build {build_s:.1f} s, QPS {qps}, recall@{K} "
         f"{recalls}, filtered recall {frec:.4f}, peak device memory {peak} "
         f"bytes ({peak / 2**30:.2f} GiB)")
@@ -1122,10 +1270,16 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
+    global BOOST_MHZ
+    BOOST_MHZ = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     log(card)
+    log(f"max SM clock {BOOST_MHZ} MHz (nvidia-smi clocks.max.sm)")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device 0: "
         f"{torch.cuda.get_device_name(0)}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
@@ -1190,7 +1344,7 @@ def main() -> int:
              "library_ms")
     log(card)
     log(json.dumps({"kernels": [{key: kv[key] for key in order}
-                                for kv in kernels.values()]}))
+                                 for kv in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

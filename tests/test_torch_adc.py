@@ -133,3 +133,40 @@ def test_adc_topk_limits_k_and_plain_takes_any_k():
                                rtol=1e-5, atol=1e-5)
     picked = np.take_along_axis(d64, n(i).astype(np.int64), axis=1)
     np.testing.assert_allclose(picked, n(d), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("ksub", [16, 256])
+def test_out_of_range_codes_clamp_like_the_uint8_table(ksub):
+    """int32 codes below 0 or at/above ksub read the entry of the nearest
+    code in [0, ksub) (a JAX gather clamps its index): the same result as
+    the clamped uint8 table, in adc_topk_plain, PQCodec.adc_search and
+    adc_probe_plain; never a wrap into a neighbouring subspace."""
+    from vector_db_tpu_torch.index.pq import PQCodec
+
+    rng = np.random.default_rng(ksub)
+    codec = PQCodec(k=ksub, chunks=4, dim=16, device="cpu")
+    codec.train(rng.standard_normal((400, 16)).astype(np.float32), iters=5,
+                restarts=1)
+    codes = rng.integers(-300, ksub + 300, (500, 4)).astype(np.int32)
+    clamped = np.clip(codes, 0, ksub - 1).astype(np.uint8)
+    valid = rng.random(500) > 0.1
+    q = rng.standard_normal((3, 16)).astype(np.float32)
+    lut = codec.adc_lut(q)
+    got = adc_topk_plain(lut, t(codes), t(valid), 20)
+    want = adc_topk_plain(lut, t(clamped), t(valid), 20)
+    assert_topk_parity(*got, *want, rtol=0, atol=0)
+    for mode in ("matmul", "gather"):
+        assert_topk_parity(*codec.adc_search(q, codes, valid, 20, mode=mode),
+                           *codec.adc_search(q, clamped, valid, 20,
+                                             mode=mode), rtol=0, atol=0)
+    # the same LUT entries as the oracle over the clamped codes
+    d64 = _scan_oracle(n(lut), clamped.astype(np.int64), valid, 20)
+    np.testing.assert_allclose(n(got[0]), np.sort(d64, axis=1)[:, :20],
+                               rtol=1e-5, atol=1e-5)
+    wide = rng.integers(0, 256, (3, 50, 4)).astype(np.uint8)
+    corr = np.zeros((3, 50), np.float32)
+    ok = np.ones((3, 50), bool)
+    np.testing.assert_array_equal(
+        n(adc_probe_plain(lut, t(wide), t(corr), t(ok))),
+        n(adc_probe_plain(lut, t(np.minimum(wide, ksub - 1)), t(corr),
+                          t(ok))))

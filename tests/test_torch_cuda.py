@@ -234,7 +234,10 @@ def test_block_topm_lower_row_wins_ties(cuda, dtype, b):
 
 
 @pytest.mark.parametrize("b,p,m,ksub", [(1, 70, 4, 16), (64, 7824, 16, 256),
-                                         (5, 333, 8, 256), (3, 100, 6, 16)])
+                                         (5, 333, 8, 256), (3, 100, 6, 16),
+                                         (4, 501, 32, 256), (2, 77, 64, 16),
+                                         (3, 300, 240, 16),
+                                         (2, 150, 200, 256)])
 def test_adc_probe_kernel_matches_plain(cuda, b, p, m, ksub):
     rng = np.random.default_rng(6)
     lut = torch.from_numpy((rng.standard_normal((b, m, ksub)) ** 2).astype(
@@ -257,7 +260,9 @@ def test_adc_probe_kernel_matches_plain(cuda, b, p, m, ksub):
 @pytest.mark.parametrize("nrows,m,ksub,b,k", [(1000, 16, 256, 1, 10),
                                               (5000 + 70, 8, 16, 70, 100),
                                               (300, 4, 16, 5, 256),
-                                              (1 << 16, 16, 256, 128, 100)])
+                                              (1 << 16, 16, 256, 128, 100),
+                                              (3000 + 7, 192, 16, 5, 10),
+                                              (3000 + 7, 160, 256, 2, 50)])
 def test_adc_topk_kernel_matches_plain(cuda, code_dtype, nrows, m, ksub, b,
                                        k):
     rng = np.random.default_rng(7)
@@ -276,6 +281,126 @@ def test_adc_topk_kernel_matches_plain(cuda, code_dtype, nrows, m, ksub, b,
     assert adc_topk.launches == before + 1
     want = adc_topk_plain(lut, codes, valid, k)
     assert_topk_parity(*got, *want, rtol=1e-5, atol=1e-4)
+
+
+def _adc_lut(rng, b, m, ksub, dev):
+    return torch.from_numpy((rng.standard_normal((b, m, ksub)) ** 2).astype(
+        np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("b,k", [(1, 1), (70, 100), (128, 256)])
+@pytest.mark.parametrize("ksub", [16, 256])
+@pytest.mark.parametrize("m", [4, 6, 8, 16, 32])   # 6: the generic m
+def test_adc_topk_kernel_shapes(cuda, m, ksub, b, k):
+    """Every m instantiation (and the generic one), both code widths, B
+    off the query group, k from 1 to 256, N off the tile."""
+    rng = np.random.default_rng(m * 1000 + ksub + b)
+    nrows = 5000 + 77
+    lut = _adc_lut(rng, b, m, ksub, cuda)
+    codes = torch.from_numpy(rng.integers(0, ksub, (nrows, m))).to(cuda)
+    codes[1:6] = codes[0]
+    valid = torch.from_numpy(rng.random(nrows) > 0.1).to(cuda)
+    for dtype in (torch.uint8, torch.int32):
+        got = adc_topk(lut, codes.to(dtype), valid, k)
+        torch.cuda.synchronize()
+        assert_topk_parity(*got, *adc_topk_plain(lut, codes, valid, k),
+                           rtol=1e-5, atol=1e-4)
+
+
+def test_adc_topk_all_rows_invalid(cuda):
+    rng = np.random.default_rng(11)
+    lut = _adc_lut(rng, 9, 16, 256, cuda)
+    codes = torch.from_numpy(rng.integers(0, 256, (3000, 16)).astype(
+        np.uint8)).to(cuda)
+    d, i = adc_topk(lut, codes, torch.zeros(3000, dtype=torch.bool,
+                                            device=cuda), 100)
+    assert (n(d) >= 3e38).all() and (n(i) == -1).all()
+
+
+@pytest.mark.parametrize("ksub", [16, 256])
+def test_adc_topk_out_of_range_codes_clamp(cuda, ksub):
+    """int32 codes below 0 or at/above ksub clamp (never wrap): the result
+    of the clamped uint8 table, bit for bit; uint8 codes at/above ksub read
+    entry ksub - 1 as well."""
+    rng = np.random.default_rng(12)
+    lut = _adc_lut(rng, 70, 8, ksub, cuda)
+    raw = rng.integers(-300, ksub + 300, (20000 + 5, 8)).astype(np.int32)
+    clamped = torch.from_numpy(np.clip(raw, 0, ksub - 1).astype(
+        np.uint8)).to(cuda)
+    valid = torch.from_numpy(rng.random(raw.shape[0]) > 0.1).to(cuda)
+    want = adc_topk(lut, clamped, valid, 50)
+    got = adc_topk(lut, torch.from_numpy(raw).to(cuda), valid, 50)
+    assert_topk_parity(*got, *want, rtol=0, atol=0)
+    assert_topk_parity(*got, *adc_topk_plain(lut, clamped, valid, 50),
+                       rtol=1e-5, atol=1e-4)
+    if ksub < 256:
+        wide = torch.from_numpy(np.clip(raw, 0, 255).astype(np.uint8)).to(
+            cuda)
+        assert_topk_parity(*adc_topk(lut, wide, valid, 50),
+                           *adc_topk_plain(lut, wide, valid, 50),
+                           rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [3, 128])
+@pytest.mark.parametrize("k", [2, 10])
+def test_adc_topk_lower_row_wins_ties(cuda, k, b):
+    """Copies of the best row in one warp, in other tiles and in other
+    corpus splits: equal values come out in row order."""
+    rng = np.random.default_rng(13)
+    nrows = 300000
+    lut = _adc_lut(rng, b, 16, 256, cuda) + 1.0
+    lut[:, :, 0] = 0.0                  # code 0 in every subspace: distance 0
+    codes = torch.from_numpy(rng.integers(1, 256, (nrows, 16)).astype(
+        np.uint8)).to(cuda)
+    copies = [7, 8, 300, 41000, 150001, nrows - 1]
+    codes[copies] = 0
+    valid = torch.ones(nrows, dtype=torch.bool, device=cuda)
+    d, i = adc_topk(lut, codes, valid, k)
+    run = min(k, len(copies))
+    assert n(i)[:, :run].tolist() == [copies[:run]] * b
+    assert (n(d)[:, :run] == 0).all()
+
+
+def test_adc_topk_unaligned_uint8_codes(cuda):
+    """uint8 codes off the 16-byte alignment the bulk copies need go
+    through the narrowing pass; the result is the same."""
+    rng = np.random.default_rng(14)
+    lut = _adc_lut(rng, 5, 16, 256, cuda)
+    flat = torch.from_numpy(rng.integers(0, 256, 4000 * 16 + 1).astype(
+        np.uint8)).to(cuda)
+    codes = flat[1:].view(4000, 16)
+    assert codes.data_ptr() % 16
+    valid = torch.ones(4000, dtype=torch.bool, device=cuda)
+    assert_topk_parity(*adc_topk(lut, codes, valid, 30),
+                       *adc_topk(lut, codes.clone(), valid, 30), rtol=0,
+                       atol=0)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("m", [4, 6, 8, 16, 32])
+def test_adc_probe_kernel_dead_runs(cuda, m, aligned):
+    """Candidates as the padded cell table gives them: each query's P
+    slots are 16 cells of 113 (P ragged), live for a random prefix of each
+    cell and dead after it; codes at any alignment (off it, m in 4..32
+    takes the generic loads)."""
+    rng = np.random.default_rng(15 + m)
+    b, cells, width, ksub = 7, 16, 113, 256
+    p = cells * width
+    lut = _adc_lut(rng, b, m, ksub, cuda)
+    flat = torch.from_numpy(rng.integers(0, ksub, b * p * m + 1).astype(
+        np.uint8)).to(cuda)
+    codes = (flat[:-1] if aligned else flat[1:]).view(b, p, m)
+    live = rng.integers(0, width + 1, (b, cells, 1))
+    valid = torch.from_numpy((np.arange(width)[None, None] < live).reshape(
+        b, p)).to(cuda)
+    corr = _tensor(rng, (b, p), cuda)
+    got = adc_probe_scores(lut, codes, corr, valid)
+    torch.cuda.synchronize()
+    want = adc_probe_plain(lut, codes, corr, valid)
+    scale = (lut.amax(-1).sum(-1) + corr.abs().amax(-1))[:, None]
+    assert (n(got)[~n(valid)] >= 3e38).all()
+    assert (np.abs(n(got) - n(want))
+            <= 1e-4 + 1e-5 * (np.abs(n(want)) + n(scale)))[n(valid)].all()
 
 
 def test_adc_kernels_empty_inputs_launch_nothing(cuda):

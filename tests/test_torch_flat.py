@@ -206,3 +206,21 @@ def test_bf16_guard_calibration_matches_jax_on_healthy_corpus():
     _check(port, ref, q)
     assert port.bf16_calibration == pytest.approx(ref.bf16_calibration)
     assert port._calibrated_size == ref._calibrated_size == 600
+
+
+@pytest.mark.parametrize("precision", ["blocksel", "blocksel2p"])
+def test_blocksel_recall_on_sift_like_matches_jax(precision):
+    """The block scans' recall depends on the corpus: on SIFT-like rows it
+    is below 1.0 in the JAX package too. Both packages run the same rows;
+    each is held to its own f32 scan, and the two recalls must agree within
+    0.01 (the recall itself is recorded, not asserted)."""
+    from vector_db_tpu.datasets import sift_like
+
+    x, q = sift_like(6000, dim=128, seed=0, n_clusters=64, queries=64)
+    port, ref = _pair(x, capacity=8192, precision=precision)
+    port_f32, ref_f32 = _pair(x, capacity=8192)
+    got = recall(port.search_batch(q, 10)[1], port_f32.search_batch(q, 10)[1])
+    want = recall(ref.search_batch(q, 10)[1], ref_f32.search_batch(q, 10)[1])
+    print(f"{precision} recall@10 on sift_like: port {got:.4f}, "
+          f"JAX {want:.4f}")
+    assert abs(got - want) <= 0.01

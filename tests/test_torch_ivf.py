@@ -256,3 +256,130 @@ def test_unported_modes_raise_not_implemented():
             call()
     with pytest.raises(ValueError, match="adc"):
         index.search_batch(q, 2, 3, pq=True, adc="bogus")
+
+
+def _same_init(mp, seed):
+    """Both packages' k-means draw their initial rows by one numpy rule: the
+    i-th k-means call of a build takes, for each restart and subspace, the
+    first k rows of a permutation seeded by (seed, i). A build is then the
+    same computation in either package, from the same start (each
+    package's own Lloyd's, restarts, OPQ, balanced assignment and
+    encoding), so what remains between them is float rounding."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    import vector_db_tpu.index.ivf as jax_ivf
+    import vector_db_tpu.index.pq as jax_pq
+    import vector_db_tpu_torch.index.ivf as port_ivf
+    import vector_db_tpu_torch.index.pq as port_pq
+    from vector_db_tpu.ops.kmeans import _lloyd as jax_lloyd
+    from vector_db_tpu_torch.ops.kmeans import _lloyd as port_lloyd
+
+    calls = {"jax": 0, "port": 0}
+
+    def draws(who, s, n, k, restarts):
+        rng = np.random.default_rng([seed, calls[who]])
+        calls[who] += 1
+        return [np.stack([rng.permutation(n)[:k] for _ in range(s)])
+                for _ in range(restarts)]
+
+    lloyd = jax.jit(lambda x, init, iters: jax.vmap(
+        lambda a, b: jax_lloyd(a, b, iters))(x, init), static_argnums=2)
+
+    def best_of(runs, where):
+        best = None
+        for c, lab, inertia in runs:
+            if best is not None:
+                better = inertia < best[2]
+                c = where(better[:, None, None], c, best[0])
+                lab = where(better[:, None], lab, best[1])
+                inertia = where(better, inertia, best[2])
+            best = (c, lab, inertia)
+        return best[0], best[1]
+
+    def jax_multi(x, k, key, iters=100, restarts=1):
+        x = jnp.asarray(x)
+        return best_of((lloyd(x, jnp.take_along_axis(
+            x, jnp.asarray(idx)[:, :, None], axis=1), iters)
+            for idx in draws("jax", *x.shape[:2], k, restarts)), jnp.where)
+
+    def port_multi(x, k, generator, iters=100, restarts=1):
+        return best_of((port_lloyd(x, torch.gather(
+            x, 1, torch.from_numpy(idx)[:, :, None].expand(
+                -1, -1, x.shape[2])), iters)
+            for idx in draws("port", *x.shape[:2], k, restarts)),
+            torch.where)
+
+    def single(multi):
+        def kmeans(x, k, key, iters=100, restarts=1):
+            c, lab = multi(x[None], k, key, iters=iters, restarts=restarts)
+            return c[0], lab[0]
+        return kmeans
+
+    mp.setattr(jax_pq, "kmeans_multi", jax_multi)
+    mp.setattr(jax_ivf, "kmeans", single(jax_multi))
+    mp.setattr(port_pq, "kmeans_multi", port_multi)
+    mp.setattr(port_ivf, "kmeans", single(port_multi))
+
+
+def c1_recalls(rows, cells, ksub, seeds, same_init, opq_iters=1, n_probe=6,
+               fetch=64, queries=200, n_clusters=64):
+    """IVF-PQ recall@10 against brute force of both packages built on the
+    CPU from the same sift_like rows (128-d) with chip_smoke.py's phase 4
+    settings cut to size: build_arrays(iters=20, spill=1,
+    list_cap_alpha=2.0), residual PQ of 16 subspaces with OPQ, fetch then
+    exact rerank. Per seed: ``jax``, ``port``, and ``port_on_jax_state``
+    (the port searching JAX's trained state, which separates training from
+    search). With ``same_init`` the two builds draw their k-means initial
+    rows alike (:func:`_same_init`). Fault C1 of ROADMAP.md at a larger
+    size than the test's, e.g. ``c1_recalls(30000, 256, 256, range(6),
+    False, opq_iters=4, n_probe=16, fetch=512, queries=300,
+    n_clusters=None)`` (about 4 minutes a seed)."""
+    from vector_db_tpu.datasets import sift_like
+
+    out = {"jax": [], "port": [], "port_on_jax_state": []}
+    for seed in seeds:
+        kw = {} if n_clusters is None else {"n_clusters": n_clusters}
+        x, q = sift_like(rows, dim=128, seed=seed, queries=queries, **kw)
+        x64, q64 = x.astype(np.float64), q.astype(np.float64)
+        d = (q64 * q64).sum(1)[:, None] - 2 * q64 @ x64.T + (
+            x64 * x64).sum(1)[None]
+        truth = np.argsort(d, axis=1)[:, :10]
+        with pytest.MonkeyPatch.context() as mp:
+            if same_init:
+                _same_init(mp, seed)
+            for name, idx in (("jax", JaxIvf(k=cells)),
+                              ("port", IvfIndex(k=cells, device="cpu"))):
+                idx.build_arrays(range(rows), x, seed=seed, iters=20,
+                                 spill=1, list_cap_alpha=2.0)
+                idx.enable_pq(chunks=16, ksub=ksub, seed=seed,
+                              opq_iters=opq_iters, residual=True)
+                kw = {"adc": "gather"} if name == "jax" else {}
+                _, ids = idx.search_batch(q, n_probe, 10, pq=True,
+                                          fetch=fetch, **kw)
+                out[name].append(recall(ids, truth))
+                if name == "jax":
+                    _, ids = _carry(idx).search_batch(q, n_probe, 10,
+                                                      pq=True, fetch=fetch)
+                    out["port_on_jax_state"].append(recall(ids, truth))
+    return out
+
+
+def test_ivf_pq_recall_matches_jax_on_sift_like():
+    """Suspected fault C1 (the port's IVF-PQ recall under JAX's on the
+    same corpus and settings), held on the CPU over 3 seeds. Training is
+    held seed by seed: with the k-means initial rows drawn alike
+    (:func:`_same_init`), the port's recall@10 may trail JAX's by at most
+    0.005 on the mean over the seeds (C1 was a gap of 0.007) and 0.01 in
+    any seed. One OPQ iteration: a second turns float rounding into
+    +-0.02 swings of one seed's recall, where the two builds from one
+    start agree within 0.006. Search alone: the port on JAX's trained
+    state gives JAX's recall within 0.01 (ADC sums in another order can
+    swap near-tied candidates at the fetch cut). The draw itself is held
+    by test_torch_kmeans.py."""
+    r = c1_recalls(3000, 16, 32, range(3), same_init=True)
+    diff = np.subtract(r["port"], r["jax"])
+    print(f"recall@10 per seed {r}; port - jax {diff}")
+    assert diff.mean() >= -0.005 and diff.min() >= -0.01
+    assert abs(np.mean(r["port_on_jax_state"]) - np.mean(r["jax"])) <= 0.01

@@ -101,3 +101,22 @@ def test_kmeans_recovers_blobs_like_jax():
     labels = n(labels)
     for b in range(4):
         assert len(set(labels[b * 50:(b + 1) * 50].tolist())) == 1
+
+
+def test_initial_rows_are_points_drawn_apart_per_subspace():
+    """The 'points' draw: each subspace and restart starts from k distinct
+    rows, and subspaces draw apart (never one draw for all), as JAX splits
+    its key per subspace. Row i of every subspace holds the value i, so
+    zero Lloyd's iterations return the drawn rows."""
+    s, rows, k = 16, 500, 32
+    x = torch.arange(rows, dtype=torch.float32)[None, :, None].expand(
+        s, rows, 1).contiguous()
+    gen = torch.Generator().manual_seed(0)
+    drawn = [n(kmeans_multi(x, k, gen, iters=0)[0])[..., 0].astype(int)
+             for _ in range(2)]
+    for d in drawn:
+        assert all(len(set(row.tolist())) == k for row in d)
+        assert len({tuple(sorted(row.tolist())) for row in d}) == s
+    assert (drawn[0] != drawn[1]).any()
+    # the sample is uniform over the rows: their mean is near the middle
+    assert abs(np.concatenate(drawn).mean() - (rows - 1) / 2) < 15

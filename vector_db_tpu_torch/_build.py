@@ -26,6 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
+_LP = ctypes.POINTER(ctypes.c_longlong)
 # entry point -> argtypes; every entry returns the launch's cudaError_t
 _SIGNATURES = {
     # q (bf16, or f32 q_hi), q_lo, emb, qsq, xsq, valid, B, N, d, k, nq,
@@ -36,10 +38,11 @@ _SIGNATURES = {
     "vdb_block_select": [_P, _P, _P, _I, _L, _I, _I, _I, _P, _P, _P],
     # lut, codes, corr, valid, B, P, m, ksub, out, stream
     "vdb_adc_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # lut, codes, valid, B, N, m, ksub, k, warps, rows_per_split, splits,
-    # is_u8, out_v, out_i, stream
-    "vdb_adc_topk": [_P, _P, _P, _I, _L, _I, _I, _I, _I, _L, _I, _I, _P, _P,
-                     _P],
+    # B, N, m, ksub, k, codes, is_u8, valid, *splits, *scratch
+    "vdb_adc_topk_plan": [_I, _L, _I, _I, _I, _P, _I, _P, _IP, _LP],
+    # lut, codes, is_u8, valid, B, N, m, ksub, k, scratch, out_v, out_i,
+    # stream
+    "vdb_adc_topk": [_P, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P],
     # keys, is_bf16, vals, B, n, slice_w, topk, out_keys, out_vals, out_w,
     # stream
     "vdb_sorted_topk": [_P, _I, _P, _I, _L, _I, _I, _P, _P, _L, _P],

@@ -28,11 +28,13 @@ _MAX_B = 65535     # the kernel's grid.y
 def adc_probe_plain(lut: torch.Tensor, codes: torch.Tensor,
                     corr: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """The kernel's plain PyTorch version: a flat-LUT gather and an f32 sum
-    over the subspaces (the JAX package's ``adc="gather"`` formulation)."""
+    over the subspaces (the JAX package's ``adc="gather"`` formulation).
+    A code at or above ``ksub`` reads entry ``ksub - 1``, as a JAX gather
+    clamps an index out of range."""
     b, m, ksub = lut.shape
     p = codes.shape[1]
     offs = torch.arange(m, device=lut.device) * ksub
-    idx = (codes.long() + offs).reshape(b, p * m)
+    idx = (codes.long().clamp_max(ksub - 1) + offs).reshape(b, p * m)
     d = torch.gather(lut.reshape(b, m * ksub), 1, idx).reshape(b, p, m)
     return torch.where(valid, d.sum(-1) + corr, BIG)
 
@@ -60,8 +62,6 @@ def adc_probe_scores(
     if b > _MAX_B:
         raise ValueError(f"adc_probe_scores: at most {_MAX_B} queries per "
                          f"call, got {b}")
-    if m % 4 == 0 and codes.data_ptr() % 4:
-        raise ValueError("adc_probe_scores: codes must be 4-byte aligned")
     out = torch.empty((b, p), dtype=torch.float32, device=lut.device)
     if out.numel() == 0:
         return out

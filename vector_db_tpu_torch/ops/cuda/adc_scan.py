@@ -12,7 +12,7 @@ the kernel or raises. ``adc_topk.launches`` counts kernel launches.
 
 from __future__ import annotations
 
-import math
+import ctypes
 from typing import Tuple
 
 import torch
@@ -23,9 +23,6 @@ from vector_db_tpu_torch.ops.topk import masked_top_k_smallest, merge_top_k
 
 MAX_K = 256        # the per-query lists live in shared memory
 MAX_KSUB = 256
-_TILE = 256        # the kernel's rows per staged tile
-_SMEM = 232448     # dynamic shared memory one CTA may use on the H100
-_CTAS_PER_SM = 4   # target grid: a few waves of resident CTAs
 _PLAIN_ELEMS = 1 << 25  # bound on the plain version's gathered [B, tile, m]
 
 
@@ -38,7 +35,8 @@ def adc_topk_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain PyTorch version (the JAX package's ``_adc_search``
     gather formulation), ``tile`` code rows at a time, with a running top-k
-    merge. Any k: ids past the valid rows are (BIG, -1)."""
+    merge. Codes are clamped into ``[0, ksub)``, as a JAX gather clamps an
+    index out of range. Any k: ids past the valid rows are (BIG, -1)."""
     b, m, ksub = lut.shape
     n = codes.shape[0]
     tile = tile or max(1024, _PLAIN_ELEMS // max(1, b * m))
@@ -47,7 +45,7 @@ def adc_topk_plain(
     best_d = torch.full((b, k), BIG, dtype=torch.float32, device=lut.device)
     best_i = torch.full((b, k), -1, dtype=torch.int32, device=lut.device)
     for s in range(0, n, tile):
-        idx = codes[s:s + tile].long() + offs            # [t, m]
+        idx = codes[s:s + tile].long().clamp(0, ksub - 1) + offs  # [t, m]
         d = lut_flat[:, idx].sum(-1)                      # [b, t]
         ids = torch.arange(s, s + idx.shape[0], dtype=torch.int32,
                            device=lut.device)
@@ -55,17 +53,6 @@ def adc_topk_plain(
                                        valid=valid[None, s:s + tile])
         best_d, best_i = merge_top_k(best_d, best_i, td, ti, k)
     return best_d, best_i
-
-
-def _warps(b: int, m: int, ksub: int, k: int) -> int:
-    """Queries (one per warp) a CTA holds: as many LUTs and lists as fit in
-    shared memory beside one code tile, at most 8 (adc_scan.cu's layout)."""
-    words = ((m + 3) // 4) | 1
-    fit = (_SMEM - _TILE * words * 4) // (m * ksub * 4 + k * 8)
-    if fit < 1:
-        raise ValueError(f"adc_topk: one query's LUT (m={m}, ksub={ksub}) "
-                         "does not fit in shared memory")
-    return max(1, min(8, b, fit))
 
 
 def adc_topk(
@@ -95,26 +82,35 @@ def adc_topk(
     from vector_db_tpu_torch import _build
 
     lib = _build.lib()
-    warps = _warps(b, m, ksub, k)
-    tiles = math.ceil(n / _TILE)
-    groups = math.ceil(b / warps)
-    sms = torch.cuda.get_device_properties(lut.device).multi_processor_count
-    splits = min(tiles, max(1, math.ceil(_CTAS_PER_SM * sms / groups)))
-    rows_per_split = math.ceil(tiles / splits) * _TILE
-    splits = math.ceil(n / rows_per_split)
-    part_d = torch.empty((b, splits * k), dtype=torch.float32,
-                         device=lut.device)
-    part_i = torch.empty((b, splits * k), dtype=torch.int32,
-                         device=lut.device)
+    is_u8 = int(codes.dtype == torch.uint8)
+    # the kernel picks its layout and corpus splits; int32 codes, uint8
+    # codes that need a clamp or are off the bulk copies' alignment, and a
+    # mask off it, go through a scratch it asks for
+    splits, scratch = ctypes.c_int(), ctypes.c_longlong()
     with torch.cuda.device(lut.device):
+        _build.check(lib.vdb_adc_topk_plan(
+            b, n, m, ksub, k, codes.data_ptr(), is_u8, valid.data_ptr(),
+            ctypes.byref(splits), ctypes.byref(scratch)), "adc_topk")
+        if splits.value == 0:
+            raise ValueError(f"adc_topk: one query's LUT (m={m}, ksub={ksub})"
+                             " does not fit in shared memory")
+        work = torch.empty(max(1, scratch.value), dtype=torch.uint8,
+                           device=lut.device)
+        part_d = torch.empty((b, splits.value * k), dtype=torch.float32,
+                             device=lut.device)
+        part_i = torch.empty((b, splits.value * k), dtype=torch.int32,
+                             device=lut.device)
         err = lib.vdb_adc_topk(
-            lut.data_ptr(), codes.data_ptr(), valid.data_ptr(), b, n, m, ksub,
-            k, warps, rows_per_split, splits, int(codes.dtype == torch.uint8),
-            part_d.data_ptr(), part_i.data_ptr(), stream_of(lut))
+            lut.data_ptr(), codes.data_ptr(), is_u8, valid.data_ptr(), b, n,
+            m, ksub, k, work.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
+            stream_of(lut))
     _build.check(err, "adc_topk")
     adc_topk.launches += 1
-    # cross-CTA merge of the per-split lists; (BIG, -1) stays the pad
-    return masked_top_k_smallest(part_d, part_i, k)
+    # cross-CTA merge of the per-split lists: a stable sort keeps split
+    # order among equal values, so the lower row wins a tie across splits;
+    # (BIG, -1) stays the pad
+    top_d, pos = torch.sort(part_d, dim=1, stable=True)
+    return top_d[:, :k], torch.gather(part_i, 1, pos[:, :k])
 
 
 adc_topk.launches = 0
