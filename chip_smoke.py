@@ -27,13 +27,20 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    of the corpus (adc_topk) against its gather mode, and a FlatIndex search
    at k = 300 (above l2_topk's 256) against float64;
 5. HNSW at the repo's 1M benchmark setting (scripts/exp_wide_final.py:38-76,
-   scripts/bench_1m.py:85-92): bulk_build of 1M x 768 embedding_like rows
-   (M = 16, l_max = 5; level 0 clustered, level 1 through knn_exact and
-   l2_topk, higher levels in numpy), 100 deletes, enable_wide(dims=128,
-   seeds=16384), wide-beam search at ef = 1280, F = 224, T = 10 with and
-   without the sorted_topk merge kernel, a filtered wide search at 10 %
-   selectivity and the classic beam at ef = 400, all at B = 1000 against
-   the port's exact scan; sorted_topk on the main path's own merge input.
+   scripts/bench_1m.py:85-92), as a user runs it: bulk_build of the first
+   983,616 of 1M x 768 embedding_like rows (M = 16, l_max = 5; level 0
+   clustered, level 1 through knn_exact and l2_topk, higher levels in
+   numpy), then the last 16,384 streamed in through insert_arrays in 16
+   batches of 1024 (exact candidates on l2_topk, the grouped commit;
+   inserts/s, peak memory, launches checked per batch, a profile of the
+   insert), checks of the inserted rows (edges both ways, no self or
+   duplicate edge, levels mirror, self top-1), 100 deletes,
+   enable_wide(dims=128, seeds=16384), wide-beam search at ef = 1280,
+   F = 224, T = 10 with and without the sorted_topk merge kernel, a
+   filtered wide search at 10 % selectivity and the classic beam at
+   ef = 400, all at B = 1000 against the port's exact scan; sorted_topk on
+   the main path's own merge input; then save_index, and a reload into a
+   new HNSW over MMapNodeStorage (bit-equal tables, the same ids).
 
 Phases 3-5 also profile each search mode (torch.profiler over 3 calls):
 device busy time, idle share of the wall time, the largest device items.
@@ -56,6 +63,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import random
 import statistics
 import subprocess
@@ -98,6 +106,9 @@ HNSW_DIM = 768
 HNSW_M = 16
 HNSW_EFC = 200
 HNSW_LMAX = 5
+HNSW_INSERT = 16384     # the last rows, streamed in after the bulk build
+INSERT_BATCH = 1024
+SELF_CHECK = 1000       # inserted rows that must be their own top-1
 N_DELETE = 100
 WIDE_DIMS = 128
 WIDE_SEEDS = 16384
@@ -1083,9 +1094,201 @@ def exact_distances(name, x, queries, dists, ids) -> None:
         raise AssertionError(f"{name}: distances not ascending")
 
 
+def hnsw_inserts(torch, idx, x, n_build):
+    """Stream rows n_build.. of x into ``idx`` through insert_arrays, a
+    batch of INSERT_BATCH a call, the last 4 under the profiler. l2_topk
+    must launch 1 + (the entry level before the batch) times a batch: the
+    level-0 scan and one per upper level. Returns (inserts/s over the
+    timed batches after the first, the first batch's s, peak bytes, the
+    candidate scan's max abs err against the plain version)."""
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+
+    scan_err = insert_scan_check(torch, idx, x[n_build:n_build + INSERT_BATCH])
+    batches = iter(range(n_build, HNSW_N, INSERT_BATCH))
+    n_batches = math.ceil((HNSW_N - n_build) / INSERT_BATCH)
+    expected = [0]
+
+    def insert_next():
+        s = next(batches)
+        e = min(s + INSERT_BATCH, HNSW_N)
+        expected[0] += 1 + idx.graph.entry_level
+        idx.insert_arrays(range(s, e), x[s:e], batch_size=INSERT_BATCH)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # the insert path: counts at 0 just before it
+    l2_topk.launches = 0
+    l2_topk.launches_bf16 = 0
+    secs = []
+    for _ in range(n_batches - 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        insert_next()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    profile(torch, "HNSW insert batch", insert_next)   # the last 4 batches
+    torch.cuda.synchronize()
+    launches, bf16 = l2_topk.launches, l2_topk.launches_bf16
+    peak = torch.cuda.max_memory_allocated()
+    if next(batches, None) is not None or idx.size != HNSW_N:
+        raise AssertionError(f"inserts: {idx.size} rows, not {HNSW_N}")
+    if launches != expected[0] or bf16:
+        raise AssertionError(f"inserts: l2_topk launched {launches} times "
+                             f"({bf16} bf16), expected {expected[0]}")
+    rate = INSERT_BATCH * (len(secs) - 1) / sum(secs[1:])
+    log(f"streamed {HNSW_N - n_build} rows in {n_batches} insert_arrays "
+        f"calls of {INSERT_BATCH} (exact candidates, grouped commit): "
+        f"{rate:.1f} inserts/s over batches 2-{len(secs)} (host clock, "
+        f"synced; per batch {[round(t * 1e3, 1) for t in secs]} ms), first "
+        f"batch {secs[0] * 1e3:.1f} ms; l2_topk launches {launches} "
+        f"(expected {expected[0]}: 1 + the entry level a batch); peak "
+        f"device memory {peak} bytes, {peak - base} above the index's "
+        f"{base}")
+    return rate, secs[0], peak - base, scan_err
+
+
+def insert_scan_check(torch, idx, batch) -> float:
+    """The insert candidate scan's l2_topk calls, at the inputs the first
+    insert batch gives them, held against l2_topk_plain: level 0 over the
+    whole f32 table at k = ef_construction under the level mask, and level
+    1 over its gathered rows at k = min(64, ef_construction). Returns the
+    max abs err."""
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
+    from vector_db_tpu_torch.ops.distance import squared_norms
+
+    q = torch.from_numpy(np.ascontiguousarray(batch)).cuda()
+    emb, has_emb, levels = idx._emb, idx._has_emb, idx.graph.levels
+    x_sq = squared_norms(emb)
+    up = torch.nonzero(levels >= 1).flatten()
+    cases = [("level 0", emb, has_emb & (levels >= 0), x_sq, HNSW_EFC),
+             ("level 1", emb[up], has_emb[up], x_sq[up],
+              min(64, HNSW_EFC, up.numel()))]
+    err = 0.0
+    for label, tab, valid, sq, k in cases:
+        got = l2_topk(q, tab, valid, k, x_sq=sq)
+        want = l2_topk_plain(q, tab, valid, k + 1, sq)
+        name = (f"insert scan {label}: l2_topk f32 n={tab.shape[0]} "
+                f"b={q.shape[0]} k={k}")
+        e = check_topk(name, *got, *want, group=k,
+                       scale=((q * q).sum(-1) + sq.max()).cpu().numpy())
+        log(f"{name} against l2_topk_plain: max abs err {e}")
+        err = max(err, e)
+    return err
+
+
+def check_inserted(torch, idx, x, n_build):
+    """The streamed rows are in the graph: each has a level-0 out-edge,
+    >= 99 % an in-edge; no row has a self-edge or a repeated edge; the
+    levels mirror is the device's; the first SELF_CHECK are their own top-1
+    under the classic beam on >= 99 %."""
+    from vector_db_tpu_torch.index import hnsw_kernels as HK
+
+    g = idx.graph
+    nb = g.neighbors
+    m2 = 2 * HNSW_M
+    slots = torch.tensor([idx._slot_of_id[i] for i in range(n_build, HNSW_N)],
+                         device=nb.device)
+    out_deg = (nb[slots, :m2] >= 0).sum(1)
+    if int((out_deg < 1).sum()):
+        raise AssertionError(f"{int((out_deg < 1).sum())} inserted rows "
+                             "have no level-0 edge")
+    lvl0 = nb[:, :m2]
+    has_in = torch.zeros(nb.shape[0], dtype=torch.bool, device=nb.device)
+    has_in[lvl0[lvl0 >= 0].long()] = True
+    no_in = int((~has_in[slots]).sum())
+    if no_in > 0.01 * slots.numel():
+        raise AssertionError(f"{no_in} inserted rows have no in-edge")
+    own = torch.arange(nb.shape[0], device=nb.device, dtype=nb.dtype)
+    if bool((nb == own[:, None]).any()):
+        raise AssertionError("a row has an edge to itself")
+    for level in range(HNSW_LMAX):
+        start = HK.level_col_start(level, HNSW_M)
+        srt = nb[:, start:start + HK.level_width(level, HNSW_M)].sort(1).values
+        rep = int(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).sum())
+        if rep:
+            raise AssertionError(f"{rep} repeated edges at level {level}")
+    if not np.array_equal(g.levels.cpu().numpy(), idx._levels_host):
+        raise AssertionError("levels mirror differs from the device levels")
+    _, ids = idx.search_batch(x[n_build:n_build + SELF_CHECK], 1,
+                              ef=CLASSIC_EF)
+    own_top1 = float(np.mean(ids[:, 0] == np.arange(n_build,
+                                                    n_build + SELF_CHECK)))
+    if own_top1 < 0.99:
+        raise AssertionError(f"inserted rows: own top-1 on {own_top1}")
+    log(f"inserted rows: all with a level-0 out-edge, {no_in} of "
+        f"{slots.numel()} without an in-edge; no self or repeated edge in "
+        f"the table; levels mirror equal; own top-1 (classic, ef "
+        f"{CLASSIC_EF}) on {own_top1:.4f} of the first {SELF_CHECK}")
+    return no_in, own_top1
+
+
+def hnsw_persist(torch, idx, x, queries):
+    """save_index to a temporary directory, then a reload into a new
+    HNSW(device="cuda") over MMapNodeStorage holding the live rows (filled
+    by save_many in chunks): the tables and the id map bit-equal, nothing
+    to re-link, the same ids on the B queries (classic). Returns (npz
+    bytes, save s, storage fill s, load s)."""
+    import tempfile
+    from pathlib import Path
+
+    from vector_db_tpu_torch import HNSW, Node
+    from vector_db_tpu_torch.storage import MMapNodeStorage
+
+    with tempfile.TemporaryDirectory() as tmp:
+        idx.index_file = Path(tmp) / "hnsw.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.save_index()
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(idx.index_file)
+        id_map = idx._store.export_id_map()
+        live = np.sort(id_map[id_map >= 0])
+        t0 = time.perf_counter()
+        storage = MMapNodeStorage(Path(tmp) / "emb.npy",
+                                  Path(tmp) / "meta.npy", dim=HNSW_DIM,
+                                  capacity=HNSW_N, content_chars=16,
+                                  metadata_chars=16)
+        for s in range(0, live.size, 65536):
+            storage.save_many([Node(id=int(i), embedding=x[i])
+                               for i in live[s:s + 65536]])
+        fill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = HNSW(M=4, ef_construction=10, rng=random.Random(0),
+                     storage=storage, index_file=idx.index_file,
+                     device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        a, b = again.graph, idx.graph
+        if not (torch.equal(a.neighbors, b.neighbors)
+                and torch.equal(a.levels, b.levels)
+                and (a.entry, a.entry_level) == (b.entry, b.entry_level)
+                and np.array_equal(again._id_of_slot, id_map)
+                and np.array_equal(again._levels_host, idx._levels_host)):
+            raise AssertionError("reload: tables differ from the saved ones")
+        if again.size != idx.size or again.recover_unlinked():
+            raise AssertionError("reload: rows to re-link after a clean save")
+        want = idx.search_batch(queries, K, ef=CLASSIC_EF)[1]
+        got = again.search_batch(queries, K, ef=CLASSIC_EF)[1]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"reload: {int((got != want).sum())} ids "
+                                 "differ on the queries")
+        storage.close()
+        del again
+    idx.index_file = None
+    log(f"persistence: save_index {save_s:.2f} s ({nbytes} bytes of npz); "
+        f"MMapNodeStorage filled with {live.size} rows by save_many in "
+        f"chunks of 65536 in {fill_s:.1f} s; load (HNSW(index_file=...): "
+        f"npz, hydration from storage, recover_unlinked) {load_s:.2f} s; "
+        f"tables, id map and levels bit-equal; classic ids equal on {B} "
+        "queries")
+    return nbytes, save_s, fill_s, load_s
+
+
 def phase_hnsw(torch, kernels):
-    """Phase 5: HNSW at 1M x 768: bulk build, delete, wide and classic
-    search, and sorted_topk on the main path's own merge input."""
+    """Phase 5: HNSW at 1M x 768: bulk build, streaming inserts, delete,
+    wide and classic search, sorted_topk on the main path's own merge
+    input, and a save and reload."""
     from vector_db_tpu_torch import HNSW, embedding_like
     from vector_db_tpu_torch.index import wide_beam
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
@@ -1102,23 +1305,33 @@ def phase_hnsw(torch, kernels):
     torch.cuda.reset_peak_memory_stats()
 
     # the main path: counts at 0 just before the build
+    n_build = HNSW_N - HNSW_INSERT
     l2_topk.launches = 0
     l2_topk.launches_bf16 = 0
     sorted_topk.launches = 0
     t0 = time.perf_counter()
     idx = HNSW(M=HNSW_M, ef_construction=HNSW_EFC, rng=random.Random(42),
                capacity=HNSW_N, l_max=HNSW_LMAX, device="cuda")
-    idx.bulk_build(range(HNSW_N), x, alpha=1.0)
+    idx.bulk_build(range(n_build), x[:n_build], alpha=1.0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_l2 = l2_topk.launches
     lv = idx._levels_host
     per_level = [int((lv >= level).sum()) for level in range(HNSW_LMAX)]
-    log(f"HNSW(M={HNSW_M}, l_max={HNSW_LMAX}).bulk_build: {build_s:.1f} s; "
-        f"nodes per level {per_level}; l2_topk launches in the build "
-        f"(knn_exact) {build_l2}")
+    log(f"HNSW(M={HNSW_M}, l_max={HNSW_LMAX}).bulk_build of {n_build} rows: "
+        f"{build_s:.1f} s; nodes per level {per_level}; l2_topk launches in "
+        f"the build (knn_exact) {build_l2}")
     if build_l2 <= 0:
         raise AssertionError("bulk_build: no l2_topk launch under knn_exact")
+    insert_rate, first_batch_s, insert_mem, scan_err = hnsw_inserts(
+        torch, idx, x, n_build)
+    kernels["l2_topk"]["max_abs_err"] = max(
+        kernels["l2_topk"]["max_abs_err"], scan_err)
+    lv = idx._levels_host
+    log("nodes per level after the inserts "
+        f"{[int((lv >= level).sum()) for level in range(HNSW_LMAX)]}")
+    no_in, own_top1 = check_inserted(torch, idx, x, n_build)
+    torch.cuda.reset_peak_memory_stats()
 
     qd = torch.from_numpy(queries).cuda()
     _, top1 = exact_search_tiled(qd[:N_DELETE], idx._emb, idx._has_emb, 1)
@@ -1252,9 +1465,15 @@ def phase_hnsw(torch, kernels):
         f" ms; keys equal, payloads equal within runs of equal keys; "
         f"profiler sorted_topk_kernel {sorted_row_ms} ms a launch in the "
         f"wide_merge_kernel profile (all steps' shapes)")
-    log(f"HNSW summary: build {build_s:.1f} s, QPS {qps}, recall@{K} "
-        f"{recalls}, filtered recall {frec:.4f}, peak device memory {peak} "
-        f"bytes ({peak / 2**30:.2f} GiB)")
+    nbytes, save_s, fill_s, load_s = hnsw_persist(torch, idx, x, queries)
+    log(f"HNSW summary: build {build_s:.1f} s ({n_build} rows), inserts "
+        f"{insert_rate:.1f}/s (first batch {first_batch_s * 1e3:.1f} ms, "
+        f"{insert_mem} bytes above the index; candidate scan max abs err "
+        f"{scan_err}), {no_in} inserted rows "
+        f"without an in-edge, own top-1 {own_top1:.4f}, QPS {qps}, recall@{K} "
+        f"{recalls}, filtered recall {frec:.4f}, peak device memory of the "
+        f"searches {peak} bytes ({peak / 2**30:.2f} GiB); save {save_s:.2f} s "
+        f"({nbytes} bytes), storage fill {fill_s:.1f} s, load {load_s:.2f} s")
 
 
 def main() -> int:

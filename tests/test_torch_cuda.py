@@ -610,3 +610,135 @@ def test_build_repeats_exactly_on_cuda(cuda, monkeypatch):
         idx.bulk_build(range(20000), x)
         graphs.append(idx.graph.neighbors)
     assert torch.equal(graphs[0], graphs[1])
+
+
+def _stream_pair(cuda, x, n0, batches, **kw):
+    """The same bulk build (its host branch: identical tables) and
+    streamed batches on the CPU and on the card; l2_topk launches per
+    batch on the card, and the entry level before each batch."""
+    import random
+
+    from vector_db_tpu_torch.index.hnsw import HNSW
+
+    pair, launches, entry_levels = [], [], []
+    for dev in ("cpu", cuda):
+        idx = HNSW(M=8, ef_construction=kw.get("efc", 100),
+                   rng=random.Random(42), capacity=len(x), l_max=4,
+                   device=dev)
+        idx.construction_mode = kw.get("mode", "exact")
+        idx.bulk_build(range(n0), x[:n0])
+        for s, e in batches:
+            before = l2_topk.launches
+            entry_levels.append(idx.graph.entry_level)
+            idx.insert_arrays(range(s, e), x[s:e])
+            torch.cuda.synchronize()
+            launches.append(l2_topk.launches - before)
+        pair.append(idx)
+    nb = len(batches)
+    return pair, launches[nb:], entry_levels[nb:]
+
+
+@pytest.mark.parametrize("mode", ["exact", "beam"])
+def test_hnsw_stream_on_cuda_matches_cpu(cuda, mode):
+    """Streamed inserts on the card and on the CPU: equal levels and
+    entry, neighbor rows equal as sets on >= 99 % of rows; the exact
+    candidates launch l2_topk 1 + (entry level) times a batch (level 0,
+    then one gathered table per upper level), the beam none."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((3000, 48)).astype(np.float32)
+    batches = [(2000, 2256), (2256, 2512), (2512, 3000)]
+    (cpu, gpu), launches, entry_levels = _stream_pair(cuda, x, 2000, batches,
+                                                      mode=mode)
+    np.testing.assert_array_equal(gpu.graph.levels.cpu().numpy(),
+                                  cpu.graph.levels.numpy())
+    np.testing.assert_array_equal(gpu._levels_host, cpu._levels_host)
+    assert (gpu.graph.entry, gpu.graph.entry_level) == (
+        cpu.graph.entry, cpu.graph.entry_level)
+    a, b = gpu.graph.neighbors.cpu().numpy(), cpu.graph.neighbors.numpy()
+    assert np.mean([set(u) == set(v) for u, v in zip(a, b)]) >= 0.99
+    want = [1 + e for e in entry_levels] if mode == "exact" else [0] * 3
+    assert launches == want
+    _, ids = gpu.search_batch(x[2000:2100], 1, ef=64)
+    assert (ids[:, 0] == np.arange(2000, 2100)).mean() >= 0.97
+
+
+@pytest.mark.parametrize("k", [64, 200])
+def test_candidate_scan_l2_topk_under_a_level_mask(cuda, k):
+    """The insert candidate scan's kernel call: the f32 table under a
+    level mask (committed rows of level >= l, batch rows excluded) at
+    k = 200 (level 0 at ef_construction 200) and 64 (upper levels), with
+    the table's norms passed in; then construction_candidates_exact on the
+    card against the CPU."""
+    from vector_db_tpu_torch.index import hnsw_kernels as HK
+
+    rng = np.random.default_rng(13)
+    nrows, dim, b = 20000, 128, 300
+    x = _tensor(rng, (nrows, dim), cuda)
+    levels = torch.from_numpy(np.minimum(
+        (-np.log(rng.random(nrows)) / np.log(16)).astype(np.int32), 4)).to(
+        cuda)
+    levels[-b:] = -1                       # the batch: valid, uncommitted
+    valid = torch.ones(nrows, dtype=torch.bool, device=cuda)
+    valid[::11] = False
+    q = x[-b:].clone()
+    x_sq = (x * x).sum(-1)
+    for level in (0, 1):
+        mask = valid & (levels >= level)
+        got = l2_topk(q, x, mask, k, x_sq=x_sq)
+        want = l2_topk_plain(q, x, mask, k, x_sq)
+        assert_topk_parity(*got, *want, rtol=1e-5, atol=1e-4)
+    graph = HK.Graph(neighbors=torch.empty(0), levels=levels, entry=0,
+                     entry_level=4)
+    before = l2_topk.launches
+    gd, gs = HK.construction_candidates_exact(graph, x, valid, q, l_max=5,
+                                              ef_construction=k, ef_upper=64)
+    torch.cuda.synchronize()
+    n_upper = int((levels >= 1).any()) + int((levels >= 2).any()) + int(
+        (levels >= 3).any()) + int((levels >= 4).any())
+    assert l2_topk.launches == before + 1 + n_upper
+    cpu_graph = HK.Graph(neighbors=torch.empty(0), levels=levels.cpu(),
+                         entry=0, entry_level=4)
+    cd, cs = HK.construction_candidates_exact(
+        cpu_graph, x.cpu(), valid.cpu(), q.cpu(), l_max=5,
+        ef_construction=k, ef_upper=64)
+    for lv in range(5):
+        assert_topk_parity(gd[:, lv], gs[:, lv], cd[:, lv], cs[:, lv],
+                           rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("saver", ["cuda", "cpu"])
+def test_hnsw_save_on_one_device_load_on_the_other(cuda, tmp_path, saver):
+    import random
+
+    from vector_db_tpu_torch.index.hnsw import HNSW
+    from vector_db_tpu_torch.storage import InMemoryNodeStorage
+    from vector_db_tpu_torch.types import Node
+
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((1500, 32)).astype(np.float32)
+    q = rng.standard_normal((40, 32)).astype(np.float32)
+    storage = InMemoryNodeStorage()
+    devs = (cuda, "cpu") if saver == "cuda" else ("cpu", cuda)
+    src = HNSW(M=8, ef_construction=60, rng=random.Random(1),
+               storage=storage, index_file=tmp_path / "g.npz",
+               device=devs[0])
+    src.bulk_build(range(1000), x[:1000])
+    src.insert_nodes([Node(id=i, embedding=x[i]) for i in range(1000, 1500)])
+    src.delete_node(3)
+    for i in range(1000):       # bulk_build writes no storage
+        if i != 3:
+            storage.save(Node(id=i, embedding=x[i]))
+    src.enable_wide(dims=16, seeds=128)
+    src.save_index()
+    dst = HNSW(M=4, ef_construction=10, rng=random.Random(0),
+               storage=storage, index_file=tmp_path / "g.npz",
+               device=devs[1])
+    assert dst.size == 1499 and dst.recover_unlinked() == 0
+    assert torch.equal(dst.graph.neighbors.cpu(), src.graph.neighbors.cpu())
+    assert torch.equal(dst.graph.levels.cpu(), src.graph.levels.cpu())
+    assert (dst.graph.entry, dst.graph.entry_level) == (
+        src.graph.entry, src.graph.entry_level)
+    assert torch.equal(dst._wb_proj.cpu(), src._wb_proj.cpu())
+    # one graph, two devices' f32 sums: ids as sets, near-ties may swap
+    a, b = dst.search_batch(q, 10, ef=64)[1], src.search_batch(q, 10, ef=64)[1]
+    assert np.mean([set(u) == set(v) for u, v in zip(a, b)]) >= 0.95

@@ -265,22 +265,29 @@ def test_small_batches_and_padding(pair):
 
 
 def test_insert_nodes_bulk_builds_an_empty_index_and_search_returns_nodes():
+    """insert_nodes on an empty index streams, as the JAX package's does
+    (bulk_build is the caller's choice): the same levels and entry as
+    JAX's from the same rng, neighbor rows equal as sets on >= 99 % of
+    rows; search returns the stored nodes."""
     rng = np.random.default_rng(11)
-    x = rng.normal(size=(port_hnsw.BULK_MIN_NODES, 8)).astype(np.float32)
+    x = rng.normal(size=(600, 8)).astype(np.float32)
     nodes = [Node(id=100 + i, embedding=x[i], metadata={"i": i})
              for i in range(len(x))]
+    ref = JaxHNSW(M=8, ef_construction=50, rng=random.Random(1))
     idx = HNSW(M=8, ef_construction=50, rng=random.Random(1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.insert_nodes(nodes[:10])         # streaming: not ported yet
-    assert idx.size == 0 and idx.storage.size() == 0
-    idx.insert_nodes(nodes)
+    for index in (ref, idx):
+        index.insert_nodes(nodes[:10])
+        index.insert_nodes(nodes)            # the first 10: a no-op
     assert idx.size == len(x) and idx.storage.size() == len(x)
+    np.testing.assert_array_equal(idx.graph.levels.numpy(),
+                                  np.asarray(ref.graph.levels))
+    assert (idx.graph.entry, idx.graph.entry_level) == (
+        int(ref.graph.entry), int(ref.graph.entry_level))
+    got, want = idx.graph.neighbors.numpy(), np.asarray(ref.graph.neighbors)
+    assert np.mean([set(a) == set(b) for a, b in zip(got, want)]) >= 0.99
     hits = idx.search(x[5], 3, ef=32)
     assert hits[0][0].id == 105 and hits[0][0].metadata == {"i": 5}
     assert hits[0][1] == pytest.approx(0.0, abs=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.insert_nodes([Node(id=1, embedding=x[0])])
-    idx.insert_nodes(nodes[:3])              # already present: a no-op
     idx.storage.delete(105)
     idx.sync_storage()
     assert 105 not in idx.search_batch(x[5:6], 3, ef=32)[1]
@@ -292,8 +299,10 @@ def test_insert_nodes_bulk_builds_an_empty_index_and_search_returns_nodes():
     lambda i: i.search_batch_rp(np.zeros((1, 8)), 3),
     lambda i: i.search_batch_beam(np.zeros((1, 8)), 3),
     lambda i: i.search_batch_scan(np.zeros((1, 8)), 3),
-    lambda i: i.save_index(), lambda i: i.load_index(),
-    lambda i: i.insert_arrays([1], np.zeros((1, 8))),
+    lambda i: i.refresh_pq_codes(),
+    lambda i: (i.enable_wide(dims=None, seeds=8),
+               i.search_batch_wide(np.zeros((1, 8), np.float32), 3,
+                                   score="pq")),
     lambda i: i.enable_wide(inline=True)])
 def test_unported_parts_raise_naming_roadmap(call):
     x = np.random.default_rng(2).normal(size=(64, 8)).astype(np.float32)

@@ -1,5 +1,6 @@
 """vector_db_tpu_torch runs without jax and without any module of the JAX
-package vector_db_tpu (FlatIndex, IVF-PQ and HNSW end to end), and never
+package vector_db_tpu (FlatIndex, IVF-PQ, and HNSW end to end with inserts
+and persistence), and never
 falls back to the CPU when a GPU was asked for."""
 
 import subprocess
@@ -51,14 +52,19 @@ def test_port_never_imports_jax():
         codec.train(xs[:500], iters=5, restarts=1)
         _, rows = codec.adc_search(xs[:3], codec.encode(xs[:500]), top_k=3)
         assert rows.shape == (3, 3), rows
-        # HNSW end to end: bulk build through insert_nodes, delete, the
-        # classic beam (filtered too) and the wide beam with the merge
-        # kernel's plain version
+        # HNSW end to end: bulk build, streaming inserts, delete, the
+        # classic beam (filtered too), the wide beam with the merge
+        # kernel's plain version, and a save and reload over memmap storage
         import random
+        import tempfile
+        from pathlib import Path
+        from vector_db_tpu_torch.storage import MMapNodeStorage
         xe = vt.embedding_like(4096, 16, seed=0, intrinsic=8)
         h = vt.HNSW(M=8, ef_construction=50, rng=random.Random(0),
                     device="cpu")
-        h.insert_nodes([vt.Node(id=i, embedding=xe[i]) for i in range(4096)])
+        h.bulk_build(range(3072), xe[:3072])
+        h.insert_nodes([vt.Node(id=i, embedding=xe[i])
+                        for i in range(3072, 4096)])
         h.delete_node(1)
         _, ids = h.search_batch(xe[:3], 4, ef=32)
         assert ids[0, 0] == 0 and ids[2, 0] == 2 and 1 not in ids, ids
@@ -69,6 +75,19 @@ def test_port_never_imports_jax():
         _, ids = h.search_batch_wide(xe[:3], 4, ef=64, frontier=16, steps=6,
                                      merge_kernel=True)
         assert ids[0, 0] == 0 and 1 not in ids, ids
+        with tempfile.TemporaryDirectory() as tmp:
+            st = MMapNodeStorage(Path(tmp) / "e.npy", Path(tmp) / "m.npy",
+                                 dim=16, capacity=4096)
+            st.save_many([vt.Node(id=i, embedding=xe[i])
+                          for i in range(4096) if i != 1])
+            h.storage, h.index_file = st, Path(tmp) / "g.npz"
+            h.save_index()
+            h2 = vt.HNSW(M=8, ef_construction=50, rng=random.Random(0),
+                         storage=st, index_file=h.index_file, device="cpu")
+            assert h2.size == 4095 and h2.recover_unlinked() == 0
+            assert (h2.search_batch(xe[:3], 4, ef=32)[1]
+                    == h.search_batch(xe[:3], 4, ef=32)[1]).all()
+            st.close()
         assert "jax" not in sys.modules, sorted(
             m for m in sys.modules if m.startswith("jax"))
         jax_pkg = sorted(m for m in sys.modules

@@ -9,14 +9,19 @@ entry re-election, and ``search(query, k, ef=, filter_ids=)`` returning
 the device (``DeviceVectorStore``) and the graph in fixed-degree neighbor
 tables beside it (``hnsw_kernels.Graph``).
 
-What runs on the port so far: the bulk build from exact or clustered kNN
-(``bulk_build``; ``insert_nodes``/``build_index`` on an empty index with
-4,096 or more nodes go there, as the indexing service does), delete, the
-classic best-first search (``search_batch``, ``search``) and wide-beam
-search (``enable_wide``, ``search_batch_wide``). ``load_state`` adopts a
-JAX index's arrays. Streaming inserts, PQ and RP traversal, the pool-free
-beam, the corpus-scan modes and persistence raise ``NotImplementedError``
-naming their ROADMAP item.
+What runs on the port: the bulk build from exact or clustered kNN
+(``bulk_build``), streaming inserts into a live graph (``insert_nodes``,
+``insert_arrays``, ``insert_node``, ``build_index``: storage first, then
+exact or beam candidates and the grouped or sequential edge commit, per
+batch), delete, the classic best-first search (``search_batch``,
+``search``), wide-beam search (``enable_wide``, ``search_batch_wide``),
+and persistence in the JAX package's split-adjacency npz
+(``save_index``, ``load_index``, ``snapshot_for_save``,
+``write_snapshot``; a load re-links rows that storage holds and the
+graph does not, ``recover_unlinked``). ``load_state`` adopts a JAX
+index's arrays. PQ and RP traversal, the pool-free beam and the
+corpus-scan modes raise ``NotImplementedError`` naming their ROADMAP
+item; a loaded file's PQ and RP arrays are kept and written back.
 
 The tables are updated in place; a mutation counter (``_version``)
 invalidates the derived mirrors (the JAX package tracks array identity).
@@ -25,6 +30,7 @@ invalidates the derived mirrors (the JAX package tracks array identity).
 from __future__ import annotations
 
 import math
+import os
 import random
 from pathlib import Path
 from typing import List, Optional, Sequence, Set, Tuple, Union
@@ -60,15 +66,11 @@ MIN_CAPACITY = 256
 #   cluster-partitioned pipeline runs instead.
 BULK_HOST_THRESHOLD = 8192
 BULK_EXACT_THRESHOLD = 262144
-# an empty index takes a batch this large through bulk_build
-BULK_MIN_NODES = 4096
 
-_STREAMING = ("streaming inserts into a non-empty HNSW (construction "
-              "search, exact construction candidates, edge commit) are not "
-              "ported yet (ROADMAP queue A item 7)")
-_PERSIST = ("HNSW persistence (the split-adjacency npz snapshot) is not "
-            "ported yet (ROADMAP queue A item 7)")
-_PQ_RP = ("HNSW PQ/RP traversal is not ported yet (ROADMAP queue A item 11)")
+_PQ_RP = "HNSW PQ/RP traversal is not ported yet (ROADMAP queue A5.4)"
+# trained state of the modes above: a loaded file's arrays are kept and
+# written back on the next save
+_CARRIED_AUX = ("rp_proj", "pq_codebooks", "pq_rotation")
 
 
 def _up2(v: int, lo: int = 8) -> int:
@@ -191,7 +193,15 @@ class HNSW:
         if precision not in ("f32", "bf16"):
             raise ValueError("precision must be 'f32' or 'bf16'")
         self.precision = precision
+        # edge commit: "grouped" (batch-parallel) or "sequential" (item at
+        # a time)
+        self.commit_mode = "grouped"
+        # insert candidates: "exact" (a masked scan of the table) or
+        # "beam" (per-point construction beam, insert_expand pops a step)
+        self.construction_mode = "exact"
+        self.insert_expand = 4
         self.device = resolve_device(device)
+        self._aux: dict = {}    # _CARRIED_AUX arrays of a loaded file
         self.graph: Optional[K.Graph] = None
         self._levels_host: Optional[np.ndarray] = None
         self._version = 0       # bumped by every table mutation
@@ -271,33 +281,76 @@ class HNSW:
         self.insert_nodes(nodes)
 
     def insert_nodes(self, nodes: Sequence[Node], batch_size: int = 1024) -> None:
-        """Insert nodes (saved to storage first). On an empty index a batch
-        of ``BULK_MIN_NODES`` or more fresh nodes is bulk-built; streaming
-        inserts are not ported yet and raise."""
+        """Insert nodes: all of them to storage first (one ``save_many``
+        where the storage has it), then the ones not in the index yet, the
+        first copy of an id in the batch, into the graph, ``batch_size``
+        at a time. Levels come from ``self.rng`` in insertion order, as in
+        the JAX package, so both build the same graph from one stream.
+        An empty index streams too: ``bulk_build`` is the caller's choice
+        (the indexing service routes a first large batch there)."""
         if not nodes:
             return
+        save_many = getattr(self.storage, "save_many", None)
+        if save_many is not None:
+            save_many(list(nodes))
+        else:
+            for node in nodes:
+                self.storage.save(node)
+        self.insert_arrays(
+            [n.id for n in nodes],
+            np.stack([np.asarray(n.embedding, np.float32) for n in nodes]),
+            batch_size)
+
+    def insert_arrays(self, ids: Sequence[int], embeddings: np.ndarray,
+                      batch_size: int = 1024) -> None:
+        """Insert rows into the graph and the device table only (no
+        storage write), ``batch_size`` at a time; ids already in the index
+        and repeats within the call are skipped."""
+        embeddings = np.asarray(embeddings, np.float32)
         seen: Set[int] = set()
-        fresh = []
-        for n in nodes:  # idempotent: against the index AND within the batch
-            if n.id in self._slot_of_id or n.id in seen:
+        keep = []
+        for i, nid in enumerate(ids):
+            if nid in self._slot_of_id or nid in seen:
                 continue
-            seen.add(n.id)
-            fresh.append(n)
-        if fresh and (self.size > 0 or len(fresh) < BULK_MIN_NODES):
-            raise NotImplementedError(
-                f"{_STREAMING}; an empty index bulk-builds a batch of "
-                f"{BULK_MIN_NODES} or more nodes")
-        for node in nodes:
-            self.storage.save(node)
-        if fresh:
-            self.bulk_build([n.id for n in fresh], np.stack(
-                [np.asarray(n.embedding, np.float32) for n in fresh]))
+            seen.add(nid)
+            keep.append(i)
+        if not keep:
+            return
+        self._ensure_init(embeddings.shape[1])
+        for s in range(0, len(keep), batch_size):
+            sel = keep[s:s + batch_size]
+            self._insert_rows([int(ids[i]) for i in sel], embeddings[sel])
 
-    def insert_arrays(self, ids, embeddings, batch_size: int = 1024) -> None:
-        raise NotImplementedError(_STREAMING)
-
-    def _insert_rows(self, ids, embs_np) -> None:
-        raise NotImplementedError(_STREAMING)
+    def _insert_rows(self, ids: List[int], embs_np: np.ndarray) -> None:
+        """One batch: slots, then levels, then the rows into the table
+        (valid, at level -1 until the commit), then candidates and the
+        commit on the device."""
+        slots = self._store.take_slots(ids)
+        levels = np.array([self.sample_level() for _ in ids], np.int32)
+        self._store.write(slots, embs_np)
+        self._levels_host[slots] = levels
+        dev = self.device
+        new_emb = torch.from_numpy(
+            np.ascontiguousarray(embs_np, np.float32)).to(dev)
+        new_slots = torch.from_numpy(slots).to(dev)
+        new_levels = torch.from_numpy(levels).to(dev)
+        if self.construction_mode == "exact":
+            K.insert_step_exact(
+                self.graph, self._emb, self._has_emb, new_emb, new_slots,
+                new_levels, M=self.M, l_max=self.l_max,
+                ef_construction=self.ef_construction,
+                ef_upper=min(self.ef_construction, 64),
+                commit=self.commit_mode)
+        else:
+            expand = max(1, int(self.insert_expand))
+            max_steps = self.max_steps or (2 * self.ef_construction + 16)
+            K.insert_step(
+                self.graph, self._emb, self._has_emb, new_emb, new_slots,
+                new_levels, M=self.M, l_max=self.l_max,
+                ef_construction=self.ef_construction,
+                max_steps=max(48, max_steps // expand),
+                commit=self.commit_mode, expand=expand)
+        self._version += 1
 
     def bulk_build(
         self,
@@ -467,12 +520,12 @@ class HNSW:
     def search_batch_beam(self, *args, **kwargs):
         raise NotImplementedError(
             "the pool-free wide beam (wide_beam.beam_search) is not ported "
-            "yet (ROADMAP queue A item 8)")
+            "yet (ROADMAP queue A5.3)")
 
     def search_batch_scan(self, *args, **kwargs):
         raise NotImplementedError(
             "HNSW.search_batch_scan and its block_select_search mode are not "
-            "ported yet (ROADMAP queue A items 4 and 7)")
+            "ported yet (ROADMAP queue A5.1)")
 
     # ------------------------------------------------------------------
     def _pca_proj(self, dims: int) -> torch.Tensor:
@@ -492,7 +545,7 @@ class HNSW:
         if inline:
             raise NotImplementedError(
                 "enable_wide(inline=True): the int8 inline neighbor tables "
-                "are not ported yet (ROADMAP queue A item 8)")
+                "are not ported yet (ROADMAP queue A5.3)")
         if dims is None or dims >= self._dim:
             self._wb_proj = None
         else:
@@ -726,17 +779,131 @@ class HNSW:
         return [int(self._id_of_slot[s]) for s in row if s >= 0]
 
     # ------------------------------------------------------------------
-    def snapshot_for_save(self):
-        raise NotImplementedError(_PERSIST)
+    def snapshot_for_save(self) -> Optional[dict]:
+        """A point-in-time copy of the index on the host, for a save now
+        or later (``write_snapshot``); None without an index file or a
+        graph. The adjacency is split: the level-0 block of every row, and
+        the upper block only of the rows with a level >= 1 (~1/M of them),
+        ~3x fewer bytes than the dense table. Levels come from the host
+        mirror. Trained state goes with it: the wide beam's projection and
+        seed count, and the PQ/RP arrays a loaded file carried."""
+        if self.index_file is None or self.graph is None:
+            return None
+        levels = self._levels_host.copy()
+        upper = np.flatnonzero(levels >= 1).astype(np.int32)
+        m2 = 2 * self.M
+        nb = self.graph.neighbors
+        snap = {
+            "neighbors0": nb[:, :m2].cpu().numpy(),
+            "neighbors_up": nb[torch.from_numpy(upper).to(nb.device).long(),
+                               m2:].cpu().numpy(),
+            "upper_slots": upper,
+            "levels": levels,
+            "entry": np.asarray(self.graph.entry, np.int32),
+            "entry_level": np.asarray(self.graph.entry_level, np.int32),
+            "id_of_slot": self._id_of_slot.copy(),
+            "M": self.M,
+            "ef_construction": self.ef_construction,
+            "l_max": self.l_max,
+        }
+        if getattr(self, "_wb_proj", None) is not None:
+            snap["wb_proj"] = self._wb_proj.cpu().numpy()
+        if hasattr(self, "_wb_n_seeds"):
+            snap["wb_n_seeds"] = np.asarray(self._wb_n_seeds)
+        snap.update(self._aux)
+        return snap
 
-    def write_snapshot(self, snap) -> None:
-        raise NotImplementedError(_PERSIST)
+    def write_snapshot(self, snap: dict) -> None:
+        """Write a ``snapshot_for_save`` to the index file, uncompressed,
+        through a temporary file and ``os.replace``: a crash mid-write
+        leaves the previous file whole."""
+        self.index_file.parent.mkdir(parents=True, exist_ok=True)
+        f32_keys = ("wb_proj",) + _CARRIED_AUX
+        arrays = {k: (np.asarray(v, np.float32) if k in f32_keys else v)
+                  for k, v in snap.items()}
+        tmp = self.index_file.with_name(self.index_file.name + ".tmp.npz")
+        np.savez(tmp, **arrays)
+        os.replace(tmp, self.index_file)
 
     def save_index(self) -> None:
-        raise NotImplementedError(_PERSIST)
+        """Persist the graph, the id map and the hyperparameters (not the
+        embeddings: they live in storage)."""
+        snap = self.snapshot_for_save()
+        if snap is not None:
+            self.write_snapshot(snap)
 
     def load_index(self) -> None:
-        raise NotImplementedError(_PERSIST)
+        """Load the index file (split or legacy dense ``neighbors``),
+        hydrate the device table from storage in one ``get_embeddings``
+        read (ids storage lacks stay invalid: skipped at query time), then
+        re-link what storage holds and the graph does not
+        (``recover_unlinked``)."""
+        if self.index_file is None or not self.index_file.exists():
+            return
+        with np.load(self.index_file) as z:
+            self.M = int(z["M"])
+            self.M_max = self.M
+            self.M_max0 = self.M * 2
+            self.ef_construction = int(z["ef_construction"])
+            self.l_max = int(z["l_max"])
+            self.level_mult = 1.0 / math.log(self.M) if self.M > 1 else 1.0
+            if "neighbors" in z:    # dense legacy files
+                neighbors = np.asarray(z["neighbors"], np.int32)
+            else:
+                nbr0 = np.asarray(z["neighbors0"])
+                upper = np.asarray(z["upper_slots"])
+                neighbors = np.full(
+                    (nbr0.shape[0], K.ncols(self.M, self.l_max)), -1,
+                    np.int32)
+                neighbors[:, :2 * self.M] = nbr0
+                if upper.size:
+                    neighbors[upper, 2 * self.M:] = z["neighbors_up"]
+            levels = np.asarray(z["levels"], np.int32)
+            entry, entry_level = int(z["entry"]), int(z["entry_level"])
+            id_of_slot = np.asarray(z["id_of_slot"], np.int64)
+            aux = {k: np.asarray(z[k]) for k in
+                   ("wb_proj", "wb_n_seeds") + _CARRIED_AUX if k in z}
+
+        dev = self.device
+        self.graph = K.Graph(neighbors=torch.from_numpy(neighbors).to(dev),
+                             levels=torch.from_numpy(levels).to(dev),
+                             entry=entry, entry_level=entry_level)
+        self._levels_host = levels.copy()
+        self._store = DeviceVectorStore(capacity=neighbors.shape[0],
+                                        on_grow=self._grow_graph, device=dev)
+        self._store.import_id_map(id_of_slot)
+        if self._slot_of_id:
+            ids = np.fromiter(self._slot_of_id.keys(), np.int64,
+                              count=len(self._slot_of_id))
+            slots = np.fromiter(self._slot_of_id.values(), np.int64,
+                                count=len(self._slot_of_id))
+            rows, found = self.storage.get_embeddings(ids)
+            if found.any():
+                self._store.ensure_dim(rows.shape[1])
+                self._store.write(slots[found], rows[found])
+        self._version += 1
+        if "wb_proj" in aux or "wb_n_seeds" in aux:
+            self._wb_proj = (torch.from_numpy(aux["wb_proj"]).to(dev)
+                             if "wb_proj" in aux else None)
+            self._wb_n_seeds = int(aux.get("wb_n_seeds", 4096))
+            self._wb = None
+        self._aux = {k: aux[k] for k in _CARRIED_AUX if k in aux}
+        self.recover_unlinked()
 
     def recover_unlinked(self) -> int:
-        raise NotImplementedError(_PERSIST)
+        """Crash repair: insert every id storage holds and the graph does
+        not (``insert_nodes`` writes storage first, so a crash before the
+        commit, or an insert after the last save, leaves such rows).
+        Idempotent. Returns the number re-linked."""
+        if self.graph is None:
+            return 0
+        live = np.asarray(self.storage.get_all_ids(), np.int64)
+        missing = [int(i) for i in live if int(i) not in self._slot_of_id]
+        if not missing:
+            return 0
+        rows, found = self.storage.get_embeddings(
+            np.asarray(missing, np.int64))
+        ids = [m for m, f in zip(missing, found) if f]
+        if ids:
+            self.insert_arrays(ids, rows[found])
+        return len(ids)

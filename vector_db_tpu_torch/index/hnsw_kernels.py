@@ -1,5 +1,5 @@
-"""HNSW graph tables and the classic best-first search, batched (port of
-vector_db_tpu/index/hnsw_kernels.py).
+"""HNSW graph tables, the classic best-first search and the streaming
+insert, batched (port of vector_db_tpu/index/hnsw_kernels.py).
 
 The graph is one ``int32[capacity, NCOLS]`` neighbor table, -1 padded:
 level-0 edges occupy columns [0, 2M), level-l >= 1 edges [M(l+1), M(l+2)).
@@ -15,8 +15,18 @@ active or at ``max_steps``. The visited set is a [B, capacity/32] int32
 bitmap; newly visited ids are unique per step (deduplicated when E > 1 rows
 are expanded), so ``scatter_add_`` of their bits is a bitwise or.
 
-Graph tensors are updated in place (``delete_slot``): a 1M-row table is
-0.45 GB, and a copy per mutation would double it.
+A streaming insert is two steps per batch: candidates for every new point
+against the pre-batch graph (``construction_candidates_exact``, an exact
+masked scan on the ``l2_topk`` kernel; or ``construction_search``, the
+per-point beam), then the edge commit (``commit_inserts_grouped``, or the
+item-at-a-time ``commit_inserts``). The commit is exact bookkeeping: on the
+same inputs it gives the JAX package's table bit for bit. Its selections
+are stable sorts, so ties keep ``lax.top_k``'s order (lower position
+first), and the scatters JAX drops out of bounds (``mode="drop"``) are
+filtered out before they are written.
+
+Graph tensors are updated in place (``delete_slot``, the commits): a
+1M-row table is 0.45 GB, and a copy per mutation would double it.
 """
 
 from __future__ import annotations
@@ -26,7 +36,14 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from vector_db_tpu_torch.ops.distance import BIG, BIG_THRESH, gather_l2_sq
+from vector_db_tpu_torch.ops.distance import (
+    BIG,
+    BIG_THRESH,
+    gather_l2_sq,
+    l2_sq_pairwise,
+    squared_norms,
+)
+from vector_db_tpu_torch.ops.exact import exact_search
 from vector_db_tpu_torch.ops.topk import later_copies, masked_top_k_smallest
 
 
@@ -349,3 +366,379 @@ def delete_slot(graph: Graph, slot: int, M: int, l_max: int) -> Graph:
         graph.entry = best if left >= 0 else -1
         graph.entry_level = left if left >= 0 else -1
     return graph
+
+
+# -- streaming insert --------------------------------------------------------
+def _smallest(d: torch.Tensor, ids: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`masked_top_k_smallest` by a stable sort: the k smallest of
+    the last axis ascending, ties in position order (``lax.top_k``'s),
+    (BIG, -1) where nothing is left. The commits select with it, so they
+    equal the JAX package's bit for bit even where distances tie."""
+    top_d, pos = torch.sort(d, dim=-1, stable=True)
+    top_d, pos = top_d[..., :k], pos[..., :k]
+    top_i = torch.gather(ids.expand(d.shape), -1, pos)
+    return top_d, torch.where(top_d >= BIG, -1, top_i)
+
+
+def _center_dists(emb: torch.Tensor, has_emb: torch.Tensor,
+                  centers: torch.Tensor, cand: torch.Tensor,
+                  rows: int = 1 << 16) -> torch.Tensor:
+    """f32[R, C]: squared L2 from row ``emb[centers[r]]`` to each
+    ``emb[cand[r, c]]`` (BIG where cand < 0 or the row is invalid),
+    ``rows`` gathered rows at a time: the grouped commit's [E, 2 width, d]
+    gather would be 3.2 GB at B = 1024, M = 16, d = 768 in one piece."""
+    step = max(1, rows // max(1, cand.shape[1]))
+    return torch.cat([
+        _dist_to(emb[centers[s:s + step].long()].float(), emb,
+                 cand[s:s + step], has_emb)
+        for s in range(0, cand.shape[0], step)])
+
+
+def construction_search(
+    graph: Graph,
+    emb: torch.Tensor,            # f32[capacity, d]
+    has_emb: torch.Tensor,        # bool[capacity]
+    queries: torch.Tensor,        # f32[B, d], the new points
+    target_levels: torch.Tensor,  # int32[B]
+    M: int,
+    l_max: int,
+    ef_construction: int,
+    max_steps: int,
+    expand: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam candidates of each new point against the pre-batch graph:
+    greedy descent to one level above its target, then a
+    ``beam_layer_unified`` of width ef_construction per level from
+    min(target, entry_level) down, each level entered at the previous
+    level's closest candidate. Returns (cand_d f32[B, l_max, efc],
+    cand_s int32[B, l_max, efc]); levels above min(target, entry_level)
+    come back (BIG, -1)."""
+    b = queries.shape[0]
+    dev = queries.device
+    efc = ef_construction
+
+    def score(idx):
+        return _dist_to(queries, emb, idx, has_emb)
+
+    tgt = target_levels.to(device=dev, dtype=torch.int32)
+    entry = torch.full((b,), graph.entry, dtype=torch.int32, device=dev)
+    entry_d = score(entry[:, None])[:, 0]
+    cur, cur_d = greedy_descent(graph, score, entry, entry_d, tgt + 1, M,
+                                l_max)
+    start_level = tgt.clamp(max=graph.entry_level)
+    cand_d = torch.full((b, l_max, efc), BIG, dtype=torch.float32,
+                        device=dev)
+    cand_s = torch.full((b, l_max, efc), -1, dtype=torch.int32, device=dev)
+    for level in range(l_max - 1, -1, -1):
+        act = (level <= start_level) & (graph.entry >= 0)
+        if not bool(act.any()):
+            continue
+        rd, rs = beam_layer_unified(graph, score, emb.shape[0], cur, cur_d,
+                                    act, level=level, ef=efc, M=M,
+                                    max_steps=max_steps, expand=expand)
+        rd = torch.where(act[:, None], rd, BIG)
+        rs = torch.where(act[:, None], rs, -1)
+        cand_d[:, level], cand_s[:, level] = rd, rs
+        # the next level down starts at this level's closest candidate
+        j = torch.argmin(rd, dim=1, keepdim=True)
+        bd, bs = torch.gather(rd, 1, j)[:, 0], torch.gather(rs, 1, j)[:, 0]
+        move = act & (bd < BIG_THRESH)
+        cur = torch.where(move, bs, cur)
+        cur_d = torch.where(move, bd, cur_d)
+    return cand_d, cand_s
+
+
+def construction_candidates_exact(
+    graph: Graph,
+    emb: torch.Tensor,          # f32[capacity, d]
+    has_emb: torch.Tensor,      # bool[capacity]
+    queries: torch.Tensor,      # f32[B, d], the new points
+    l_max: int,
+    ef_construction: int,
+    ef_upper: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact insert candidates: per new point and level l, the nearest
+    ``k_l`` committed rows with ``levels >= l`` (k_0 = ef_construction,
+    k_l = min(ef_upper, ef_construction) above), by the masked exact scan
+    ``exact_search``: the ``l2_topk`` kernel on a CUDA table while
+    k_l <= 256 (a larger ef_construction takes the tiled plain scan, the
+    rule FlatIndex follows). The mask includes ``levels >= 0``: the
+    batch's rows are in the table, valid, before the commit, with level
+    -1, so no point finds itself or its batch mates (the commit adds the
+    earlier ones through ``batch_d``).
+
+    The table's norms are computed once for all levels. Level 0 is one
+    scan of the whole table; above it, each level scans a gathered table
+    of its own rows only (~1/M of the level below), so a batch costs
+    ~1 + 1/(M - 1) full scans and 1 + (the pre-batch entry level)
+    launches.
+
+    Returns (cand_d f32[B, l_max, efc], cand_s int32[B, l_max, efc]),
+    ascending per level, (BIG, -1) padded."""
+    b = queries.shape[0]
+    dev = queries.device
+    efc = ef_construction
+    x_sq = squared_norms(emb)
+    cand_d = torch.full((b, l_max, efc), BIG, dtype=torch.float32,
+                        device=dev)
+    cand_s = torch.full((b, l_max, efc), -1, dtype=torch.int32, device=dev)
+    levels = graph.levels
+    k0 = min(efc, emb.shape[0])
+    d, i = exact_search(queries, emb, has_emb & (levels >= 0), k0, x_sq=x_sq)
+    cand_d[:, 0, :k0], cand_s[:, 0, :k0] = d, i
+    up = torch.nonzero(levels >= 1).flatten()
+    up_levels = levels[up]
+    k_up = min(ef_upper, efc)
+    for level in range(1, l_max):
+        rows = up[up_levels >= level]
+        if rows.numel() == 0:
+            break
+        k = min(k_up, rows.numel())
+        d, i = exact_search(queries, emb[rows], has_emb[rows], k,
+                            x_sq=x_sq[rows])
+        cand_d[:, level, :k] = d
+        cand_s[:, level, :k] = torch.where(
+            i >= 0, rows[i.clamp_min(0).long()].int(), -1)
+    return cand_d, cand_s
+
+
+def commit_inserts(
+    graph: Graph,
+    emb: torch.Tensor,
+    has_emb: torch.Tensor,
+    new_slots: torch.Tensor,    # int32[B], -1 = padding (a full no-op)
+    new_levels: torch.Tensor,   # int32[B]
+    cand_d: torch.Tensor,       # f32[B, l_max, efc]
+    cand_s: torch.Tensor,       # int32[B, l_max, efc]
+    batch_d: torch.Tensor,      # f32[B, B] exact intra-batch distances
+    M: int,
+    l_max: int,
+    ef_construction: int,
+) -> Graph:
+    """Sequential edge commit, one batch item at a time, in place: each
+    item's candidates, merged with the earlier batch members at their
+    exact ``batch_d`` distances, give its M closest per level as its
+    forward row; each selected neighbour appends a backlink to its row, or
+    keeps the closest ``width`` of its row and the new node when the row
+    is full. An item whose slot is -1 or already in the graph is skipped;
+    the first item into an empty graph only becomes the entry."""
+    b = new_slots.shape[0]
+    efc = ef_construction
+    nb, levels = graph.neighbors, graph.levels
+    dev = nb.device
+    new_slots = new_slots.to(device=dev, dtype=torch.int32)
+    new_levels = new_levels.to(device=dev, dtype=torch.int32)
+    slots_h, levels_h = new_slots.tolist(), new_levels.tolist()
+    # one read of the slots' levels; a slot committed earlier in this
+    # loop is in ``done``
+    was_in = levels[new_slots.clamp_min(0).long()].tolist()
+    done: set = set()
+    earlier = torch.arange(b, device=dev)
+    rows_m = torch.arange(M, device=dev)
+    for i in range(b):
+        slot, lvl = slots_h[i], levels_h[i]
+        if slot < 0 or was_in[i] >= 0 or slot in done:
+            continue
+        done.add(slot)
+        if graph.entry >= 0:
+            bd_i = torch.where(earlier < i, batch_d[i], BIG)
+            for level in range(lvl + 1):
+                start = level_col_start(level, M)
+                width = level_width(level, M)
+                md, ms = _smallest(
+                    torch.cat([cand_d[i, level],
+                               torch.where(new_levels >= level, bd_i, BIG)]),
+                    torch.cat([cand_s[i, level], new_slots]), efc)
+                sel_s = ms[:M]
+                sel_ok = sel_s >= 0
+                fwd = torch.full((width,), -1, dtype=torch.int32, device=dev)
+                fwd[:M] = torch.where(sel_ok, sel_s, -1)
+                nb[slot, start:start + width] = fwd
+                # backlinks: the selected slots are unique, so all M rows
+                # update in one gather / compute / scatter
+                n_safe = sel_s.clamp_min(0).long()
+                rows = nb[n_safe, start:start + width]
+                free = rows < 0
+                first_free = torch.argmax(free.int(), dim=1)
+                appended = rows.clone()
+                appended[rows_m, first_free] = slot
+                cand = torch.cat([rows, rows.new_full((M, 1), slot)], 1)
+                _, pruned = _smallest(
+                    _center_dists(emb, has_emb, n_safe, cand), cand, width)
+                new_rows = torch.where(free.any(1)[:, None], appended, pruned)
+                keep = sel_ok.nonzero().flatten()
+                nb[sel_s[keep].long(), start:start + width] = new_rows[keep]
+        levels[slot] = lvl
+        if graph.entry < 0 or lvl > graph.entry_level:
+            graph.entry, graph.entry_level = slot, lvl
+    return graph
+
+
+def commit_inserts_grouped(
+    graph: Graph,
+    emb: torch.Tensor,
+    has_emb: torch.Tensor,
+    new_slots: torch.Tensor,    # int32[B], -1 = padding (a full no-op)
+    new_levels: torch.Tensor,   # int32[B]
+    cand_d: torch.Tensor,       # f32[B, l_max, efc]
+    cand_s: torch.Tensor,       # int32[B, l_max, efc]
+    batch_d: torch.Tensor,      # f32[B, B]
+    M: int,
+    l_max: int,
+    ef_construction: int,
+) -> Graph:
+    """Batch-parallel edge commit, in place; the same graph as
+    :func:`commit_inserts` up to the order within a row. Item i's
+    selection depends only on its candidates and the earlier batch items
+    (a causal [B, B] mask), so all selections run at once; and the fold
+    "append if free, else keep the closest ``width``" of a row is the
+    top-``width`` of the row and all its incoming backlinks. So per level:
+    the forward rows are written (slots are unique), then the backlinks
+    are grouped by destination (a sort by (destination, distance) and
+    ranks within each run; the closest ``width`` are kept) and each
+    destination row merges once, in parallel. Only the real destinations
+    are scored, ``_center_dists``' chunk at a time."""
+    b = new_slots.shape[0]
+    efc = ef_construction
+    nb, levels = graph.neighbors, graph.levels
+    dev = nb.device
+    capacity = levels.shape[0]
+    new_slots = new_slots.to(device=dev, dtype=torch.int32)
+    new_levels = new_levels.to(device=dev, dtype=torch.int32)
+    slot_safe = new_slots.clamp_min(0).long()
+    do = (levels[slot_safe] < 0) & (new_slots >= 0)
+    ar = torch.arange(b, device=dev)
+    causal = ar[None, :] < ar[:, None]     # [i, j]: j precedes i
+    src = slot_safe.repeat_interleave(M).int()
+    src_do = do.repeat_interleave(M)
+    batch_s = new_slots[None, :].expand(b, b)
+
+    for level in range(l_max):
+        lvl_active = do & (level <= new_levels)
+        if not bool(lvl_active.any()):
+            continue
+        start = level_col_start(level, M)
+        width = level_width(level, M)
+        # selection, all items at once (the first item into an empty
+        # graph has no candidates: its selection is empty by itself)
+        b_lvl = torch.where(causal & (new_levels[None, :] >= level),
+                            batch_d, BIG)
+        md, ms = _smallest(torch.cat([cand_d[:, level], b_lvl], 1),
+                           torch.cat([cand_s[:, level], batch_s], 1), efc)
+        sel_d, sel_s = md[:, :M], ms[:, :M]
+        sel_ok = (sel_s >= 0) & lvl_active[:, None]
+
+        # forward rows (disjoint slots: one scatter)
+        fwd = torch.full((b, width), -1, dtype=torch.int32, device=dev)
+        fwd[:, :M] = torch.where(sel_ok, sel_s, -1)
+        act = lvl_active.nonzero().flatten()
+        nb[slot_safe[act], start:start + width] = fwd[act]
+
+        # backlinks grouped by destination: sort by (dst, distance), the
+        # invalid ones (dst = capacity) last
+        dst = torch.where(sel_ok.reshape(-1) & src_do, sel_s.reshape(-1),
+                          capacity)
+        d_e = torch.where(dst < capacity, sel_d.reshape(-1), BIG)
+        by_d = torch.sort(d_e, stable=True).indices
+        order = by_d[torch.sort(dst[by_d], stable=True).indices]
+        n_live = int((dst < capacity).sum())
+        if n_live == 0:
+            continue
+        dst_s, src_s = dst[order[:n_live]], src[order[:n_live]]
+        first = torch.ones(n_live, dtype=torch.bool, device=dev)
+        first[1:] = dst_s[1:] != dst_s[:-1]
+        seg = torch.cumsum(first.int(), 0) - 1
+        pos = torch.arange(n_live, device=dev)
+        rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+        keep = rank < width
+        seg_dst = dst_s[first].long()
+        inc = torch.full((seg_dst.shape[0], width), -1, dtype=torch.int32,
+                         device=dev)
+        inc[seg[keep], rank[keep]] = src_s[keep]
+        cand = torch.cat([nb[seg_dst, start:start + width], inc], 1)
+        _, merged = _smallest(_center_dists(emb, has_emb, seg_dst, cand),
+                              cand, width)
+        nb[seg_dst, start:start + width] = merged
+
+    # levels, and the entry: the first item of the highest level, if above
+    # the old entry's
+    act = do.nonzero().flatten()
+    levels[slot_safe[act]] = new_levels[act]
+    if act.numel():
+        lv = torch.where(do, new_levels, -1)
+        best = int(torch.argmax(lv))
+        best_lvl = int(lv[best])
+        if graph.entry < 0 or best_lvl > graph.entry_level:
+            graph.entry, graph.entry_level = int(slot_safe[best]), best_lvl
+    return graph
+
+
+def _batch_dists(new_emb: torch.Tensor, new_slots: torch.Tensor
+                 ) -> torch.Tensor:
+    """Exact intra-batch distances f32[B, B], BIG on padding rows and
+    columns."""
+    d = l2_sq_pairwise(new_emb, new_emb)
+    pad = new_slots < 0
+    return torch.where(pad[None, :] | pad[:, None], BIG, d)
+
+
+_COMMITS = {"grouped": commit_inserts_grouped, "sequential": commit_inserts}
+
+
+def _commit(commit: str):
+    if commit not in _COMMITS:
+        raise ValueError(f"commit must be one of {sorted(_COMMITS)}, "
+                         f"got {commit!r}")
+    return _COMMITS[commit]
+
+
+def insert_step(
+    graph: Graph,
+    emb: torch.Tensor,
+    has_emb: torch.Tensor,
+    new_emb: torch.Tensor,      # f32[B, d] (padding rows may be zeros)
+    new_slots: torch.Tensor,    # int32[B], -1 = padding
+    new_levels: torch.Tensor,   # int32[B]
+    M: int,
+    l_max: int,
+    ef_construction: int,
+    max_steps: int,
+    commit: str = "grouped",
+    expand: int = 1,
+) -> Graph:
+    """Streaming insert with beam candidates: ``construction_search``
+    (``expand`` candidates popped a step), the intra-batch distances, and
+    the ``commit`` ("grouped" or "sequential") edge commit."""
+    commit_fn = _commit(commit)
+    cd, cs = construction_search(
+        graph, emb, has_emb, new_emb, new_levels, M=M, l_max=l_max,
+        ef_construction=ef_construction, max_steps=max_steps, expand=expand)
+    return commit_fn(graph, emb, has_emb, new_slots, new_levels, cd, cs,
+                     _batch_dists(new_emb, new_slots), M=M, l_max=l_max,
+                     ef_construction=ef_construction)
+
+
+def insert_step_exact(
+    graph: Graph,
+    emb: torch.Tensor,
+    has_emb: torch.Tensor,
+    new_emb: torch.Tensor,      # f32[B, d] (padding rows may be zeros)
+    new_slots: torch.Tensor,    # int32[B], -1 = padding
+    new_levels: torch.Tensor,   # int32[B]
+    M: int,
+    l_max: int,
+    ef_construction: int,
+    ef_upper: int,
+    commit: str = "grouped",
+) -> Graph:
+    """Streaming insert with exact candidates
+    (``construction_candidates_exact``), the intra-batch distances, and
+    the ``commit`` edge commit."""
+    commit_fn = _commit(commit)
+    cd, cs = construction_candidates_exact(
+        graph, emb, has_emb, new_emb, l_max=l_max,
+        ef_construction=ef_construction, ef_upper=ef_upper)
+    return commit_fn(graph, emb, has_emb, new_slots, new_levels, cd, cs,
+                     _batch_dists(new_emb, new_slots), M=M, l_max=l_max,
+                     ef_construction=ef_construction)

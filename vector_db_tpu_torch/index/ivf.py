@@ -22,7 +22,7 @@ and int8 rounding is not reproduced: the kernel sums in f32). ``"gather"``
 runs the kernel's plain version. Because every formulation sums in f32,
 un-reranked search needs no switch to ``"gather"`` as the JAX package makes.
 
-Not ported yet (ROADMAP queue A item 11): the RP modes (``enable_rp``,
+Not ported yet (ROADMAP queue A5.2): the RP modes (``enable_rp``,
 ``search_batch(rp=True)``) and the full-scan PQ path for ``n_probe >= k``;
 each raises ``NotImplementedError``. An index file's RP state is not loaded.
 """
@@ -56,9 +56,9 @@ from vector_db_tpu_torch.types import Node
 ADC_MODES = ("pallas", "onehot", "onehot8", "gather")
 _PANEL = 1 << 26   # bound (elements) on a query block's gathered tensors
 _RP = ("IVF residual projection (enable_rp, search_batch(rp=True)) is not "
-       "ported yet: ROADMAP queue A item 11")
+       "ported yet: ROADMAP queue A5.2")
 _PQ_SCAN = ("the full-scan IVF-PQ path (n_probe >= k, _ivf_pq_scan_cells) "
-            "is not ported yet: ROADMAP queue A item 11; use n_probe < k")
+            "is not ported yet: ROADMAP queue A5.2; use n_probe < k")
 
 
 def _top_k(d: torch.Tensor, ids: torch.Tensor, k: int):

@@ -25,7 +25,7 @@ Differences from the JAX function, all on selection only:
   step at the 1M shape.
 
 ``inline_tabs`` (int8 inline neighbor replication) is not ported yet
-(ROADMAP queue A item 8).
+(ROADMAP queue A5.3).
 """
 
 from __future__ import annotations
@@ -174,7 +174,7 @@ def wide_search(
     if inline_tabs is not None:
         raise NotImplementedError(
             "wide_search(inline_tabs=...): the int8 inline neighbor tables "
-            "are not ported yet (ROADMAP queue A item 8)")
+            "are not ported yet (ROADMAP queue A5.3)")
     b = queries.shape[0]
     dev = queries.device
     P = ef

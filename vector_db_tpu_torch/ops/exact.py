@@ -51,11 +51,13 @@ def exact_search(
     emb: torch.Tensor,       # f32[N, d]
     valid: torch.Tensor,     # bool[N]
     k: int,
+    x_sq: torch.Tensor | None = None,   # f32[N]; from emb when None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by squared L2: (f32[B, k], int32[B, k]) ascending,
     (BIG, -1) padded when fewer than k rows are valid. k <= 256 runs the
-    ``l2_topk`` kernel, a larger k the tiled plain scan."""
-    return _l2_scan(queries, emb, valid, k)
+    ``l2_topk`` kernel, a larger k the tiled plain scan. A caller that
+    scans one table many times passes its norms as ``x_sq``."""
+    return _l2_scan(queries, emb, valid, k, x_sq=x_sq)
 
 
 def exact_search_tiled(
