@@ -40,9 +40,25 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    filtered wide search at 10 % selectivity and the classic beam at
    ef = 400, all at B = 1000 against the port's exact scan; sorted_topk on
    the main path's own merge input; then save_index, and a reload into a
-   new HNSW over MMapNodeStorage (bit-equal tables, the same ids).
+   new HNSW over MMapNodeStorage (bit-equal tables, the same ids);
+6. the port's services at the deployment of the repo's config.yaml
+   (all-MiniLM-L6-v2 widths, d = 384, capacity 1,000,000, HNSW M = 16,
+   ef_construction = 200, flush_threshold = 1000; the fake-384 embedder):
+   ingest through StorageService + IndexingService (a bulk first load of
+   949,980 documents, then 10 streamed batches of 5,000, each scheduling
+   an async flush), a restart on the same files, 20 single inserts (each
+   saving synchronously) and 100 deletes, the scan route (B = 1000), the
+   wide route (B = 64), the filtered scan and 200 single queries, each
+   equal to the direct index call and held against the port's exact
+   scan; l2_topk, sorted_topk and adc_probe at the inputs the services'
+   routes give them against their plain versions; a flat and an IVF-PQ
+   service at 100,000 rows; the HTTP app on 127.0.0.1; each line carries
+   the card's name and power limit. The launch counts are the services'
+   calls alone. The storage's text fields are SVC_FIELD_CHARS wide (the
+   one cut); a StorageService at the reference's widths is timed over
+   SVC_FULL_ROWS rows beside it.
 
-Phases 3-5 also profile each search mode (torch.profiler over 3 calls):
+Phases 3-6 also profile search modes (torch.profiler over 3 calls):
 device busy time, idle share of the wall time, the largest device items.
 
 Each kernel's record carries its time, its plain version's, a library
@@ -59,6 +75,7 @@ limit. Without a CUDA device it prints no result and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -119,6 +136,36 @@ CLASSIC_EF = 400
 FILTER_EVERY = 10       # 10 % selectivity
 WIDE_FLOOR = 0.95       # the JAX package recorded 0.9591 (EXP_WIDE_FINAL)
 CLASSIC_FLOOR = 0.70    # README: 0.775 at ef = 400 on an older graph
+# phase 6: the services at the config.yaml deployment
+SVC_N = 1_000_000       # config.yaml: vector_db.capacity
+SVC_DIM = 384           # all-MiniLM-L6-v2 (config.yaml: embedding.dimension)
+SVC_QUERIES = 1000
+SVC_BATCH = 5000        # scripts/bench_tiered.py's batch
+SVC_BATCHES = 10
+SVC_SINGLE = 20         # single documents past the threshold (sync save)
+SVC_DELETE = 100
+SVC_TAGS = 10           # metadata {"tag": id % 10}: a 10 % filter
+SVC_SCAN_THRESHOLD = 256
+SVC_WIDE_B = 64
+SVC_SINGLE_Q = 200
+SVC_CHECKED = 20        # single queries held against the direct call
+SVC_MIN_SIZE = 4096     # index.wide.min_size and index.pq.min_size
+SVC_SMALL_N = 100_000   # step e: the flat and IVF services
+SVC_IVF_K = 256
+SVC_PQ_M = 16
+# the phase's storage content / metadata field widths. Every record here
+# ({"tag": t}, no content) fits in 64. The reference's 10,240 / 5,120
+# characters make 61,448-byte records, a 61 GB metadata file at 1M rows:
+# svc_full_width times that store's create, save_many and reopen over
+# SVC_FULL_ROWS rows, and at those rates a full-width ingest and restart
+# take more time than the phase has
+SVC_FIELD_CHARS = 64
+SVC_FULL_ROWS = 50_000  # rows of the full-width StorageService timing
+SVC_HTTP = {"embed": 5, "batch_docs": 1, "batch_docs_size": 50,
+            "search": 50, "search_batch": 5, "health": 20, "stats": 5}
+SCAN_FLOOR = 0.97
+SVC_WIDE_FLOOR = 0.7378  # 0.02 under the wide route's first reading, 0.7578
+SVC_WIDE_EFS = (400, 1280)  # search_batch_wide efs read beside the route's
 # peaks for the bound (H100 SXM datasheet, at 700 W)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
@@ -1148,7 +1195,7 @@ def hnsw_inserts(torch, idx, x, n_build):
     return rate, secs[0], peak - base, scan_err
 
 
-def insert_scan_check(torch, idx, batch) -> float:
+def insert_scan_check(torch, idx, batch, say=log) -> float:
     """The insert candidate scan's l2_topk calls, at the inputs the first
     insert batch gives them, held against l2_topk_plain: level 0 over the
     whole f32 table at k = ef_construction under the level mask, and level
@@ -1157,8 +1204,8 @@ def insert_scan_check(torch, idx, batch) -> float:
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
     from vector_db_tpu_torch.ops.distance import squared_norms
 
-    q = torch.from_numpy(np.ascontiguousarray(batch)).cuda()
     emb, has_emb, levels = idx._emb, idx._has_emb, idx.graph.levels
+    q = torch.from_numpy(np.ascontiguousarray(batch)).to(emb.device)
     x_sq = squared_norms(emb)
     up = torch.nonzero(levels >= 1).flatten()
     cases = [("level 0", emb, has_emb & (levels >= 0), x_sq, HNSW_EFC),
@@ -1169,10 +1216,10 @@ def insert_scan_check(torch, idx, batch) -> float:
         got = l2_topk(q, tab, valid, k, x_sq=sq)
         want = l2_topk_plain(q, tab, valid, k + 1, sq)
         name = (f"insert scan {label}: l2_topk f32 n={tab.shape[0]} "
-                f"b={q.shape[0]} k={k}")
+                f"d={tab.shape[1]} b={q.shape[0]} k={k}")
         e = check_topk(name, *got, *want, group=k,
                        scale=((q * q).sum(-1) + sq.max()).cpu().numpy())
-        log(f"{name} against l2_topk_plain: max abs err {e}")
+        say(f"{name} against l2_topk_plain: max abs err {e}")
         err = max(err, e)
     return err
 
@@ -1476,6 +1523,703 @@ def phase_hnsw(torch, kernels):
         f"({nbytes} bytes), storage fill {fill_s:.1f} s, load {load_s:.2f} s")
 
 
+def svc_config(path, file_path, **index) -> str:
+    """Write the phase's config: config.yaml's deployment (fake-384 in place
+    of MiniLM-L6, whose weights the repo does not hold) on the card."""
+    import yaml
+
+    cfg = {"embedding": {"model": f"fake-{SVC_DIM}", "dimension": SVC_DIM},
+           "device": "cuda",
+           "index": {"ef_construction": HNSW_EFC, "M": HNSW_M,
+                     "flush_threshold": 1000, **index},
+           "vector_db": {"file_path": str(file_path), "dimension": SVC_DIM,
+                         "capacity": SVC_N}}
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def median_qps(torch, call, batches) -> float:
+    """Queries/s of ``call`` on the last 3 of ``batches`` (2 warm-ups),
+    median of the host-clock reps, each ending in a device sync."""
+    secs = []
+    for i, qb in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(qb)
+        torch.cuda.synchronize()
+        if i >= 2:
+            secs.append(time.perf_counter() - t0)
+    return len(batches[0]) / statistics.median(secs)
+
+
+def same_answer(name, got, want) -> None:
+    """A service answer equals the direct index call's: ids and
+    distances."""
+    if not (np.array_equal(got[1], want[1])
+            and np.array_equal(got[0], want[0])):
+        raise AssertionError(f"{name}: the service's answer differs from "
+                             "the direct index call")
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are a check's (a reference scan, a direct index
+    call, a kernel against its plain version), not the path's: every
+    kernel count of phase 6 is put back on exit."""
+    from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
+
+    saved = (l2_topk.launches, l2_topk.launches_bf16, sorted_topk.launches,
+             adc_probe_scores.launches)
+    try:
+        yield
+    finally:
+        (l2_topk.launches, l2_topk.launches_bf16, sorted_topk.launches,
+         adc_probe_scores.launches) = saved
+
+
+def captured(module, name, call):
+    """The (args, kwargs) of every call of ``module.name`` while ``call()``
+    runs; at least one."""
+    seen = []
+    real = getattr(module, name)
+
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        call()
+    finally:
+        setattr(module, name, real)
+    if not seen:
+        raise AssertionError(f"{name} was not called")
+    return seen
+
+
+def fold_err(kernels, name, err) -> None:
+    kernel = kernels.setdefault(name, {})
+    kernel["max_abs_err"] = max(kernel.get("max_abs_err", 0.0), err)
+
+
+def svc_ingest(torch, say, storage, svc, nodes, n_bulk):
+    """Step a: the first n_bulk nodes in one call (the bulk route), then
+    SVC_BATCHES batches of SVC_BATCH (each streams and schedules a flush),
+    each through StorageService.save_many and IndexingService.insert_nodes
+    as the app's batch route runs them; then wait_for_flush. Before the
+    first streamed batch, the insert candidate scan's l2_topk calls at that
+    batch's inputs are held against the plain version. Returns a dict of
+    the step's numbers."""
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+
+    idx = svc.index
+    routes = {"bulk_build": 0, "insert_nodes": 0, "write_snapshot": 0,
+              "_schedule_flush": 0}
+    for name in routes:
+        owner = svc if name == "_schedule_flush" else idx
+        real = getattr(owner, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            routes[_name] += 1
+            return _real(*a, **kw)
+        setattr(owner, name, counted)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    storage.save_many(nodes[:n_bulk])
+    t1 = time.perf_counter()
+    svc.insert_nodes(nodes[:n_bulk])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if routes["bulk_build"] != 1 or routes["insert_nodes"]:
+        raise AssertionError(f"ingest: the first call took {routes}, not "
+                             "the bulk route")
+    bulk_l2 = l2_topk.launches
+    out = {"bulk_s": t2 - t0, "bulk_storage_s": t1 - t0,
+           "bulk_docs_s": n_bulk / (t2 - t0), "bulk_l2": bulk_l2}
+    say(f"ingest, bulk route: {n_bulk} docs in {t2 - t0:.2f} s "
+        f"({out['bulk_docs_s']:.1f} docs/s; StorageService.save_many "
+        f"{t1 - t0:.2f} s, IndexingService.insert_nodes -> bulk_build "
+        f"{t2 - t1:.2f} s); l2_topk launches {bulk_l2} (knn_exact)")
+    with uncounted():
+        first = nodes[n_bulk:n_bulk + min(SVC_BATCH, 1024)]
+        out["scan_err"] = insert_scan_check(
+            torch, idx, np.stack([n.embedding for n in first]), say)
+    secs, per_batch = [], []
+    for b in range(SVC_BATCHES):
+        s = n_bulk + b * SVC_BATCH
+        batch = nodes[s:s + SVC_BATCH]
+        lvl_before, before = idx.graph.entry_level, l2_topk.launches
+        scheduled = routes["_schedule_flush"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        storage.save_many(batch)
+        svc.insert_nodes(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        n_sub = math.ceil(len(batch) / 1024)
+        got = l2_topk.launches - before
+        lo = n_sub * (1 + lvl_before)
+        hi = n_sub * (1 + idx.graph.entry_level)
+        if not lo <= got <= hi or routes["bulk_build"] != 1 or \
+                routes["_schedule_flush"] != scheduled + 1:
+            raise AssertionError(f"ingest batch {b}: l2_topk launched {got} "
+                                 f"times, not in [{lo}, {hi}], a bulk build "
+                                 "or no flush scheduled")
+        per_batch.append(got)
+    t0 = time.perf_counter()
+    svc.wait_for_flush()
+    wait_s = time.perf_counter() - t0
+    if routes["insert_nodes"] != SVC_BATCHES:
+        raise AssertionError(f"ingest: {routes}")
+    n_stream = SVC_BATCHES * SVC_BATCH
+    out.update(stream_docs_s=n_stream / sum(secs), stream_ms=secs,
+               l2_per_batch=per_batch, flushes=routes["write_snapshot"],
+               wait_s=wait_s, peak=torch.cuda.max_memory_allocated())
+    say(f"ingest, streamed route: {SVC_BATCHES} batches of {SVC_BATCH} in "
+        f"{sum(secs):.2f} s ({out['stream_docs_s']:.1f} docs/s, host clock, "
+        f"synced; per batch {[round(t * 1e3, 1) for t in secs]} ms); "
+        f"l2_topk launches per batch {per_batch} "
+        f"({math.ceil(SVC_BATCH / 1024)} insert sub-batches of <= 1024, "
+        f"each 1 + the entry level); async flushes written "
+        f"{routes['write_snapshot']} (latest-wins over "
+        f"{routes['_schedule_flush']} scheduled), wait_for_flush "
+        f"{wait_s:.2f} s; peak device memory {out['peak']} bytes "
+        f"({out['peak'] / 2**30:.2f} GiB)")
+    return out
+
+
+def svc_searches(torch, say, svc, storage, queries, deleted):
+    """Step d: the scan route (B = SVC_QUERIES), the wide route
+    (B = SVC_WIDE_B), the filtered scan and single queries through the
+    service, each equal to the direct index call the JAX service makes and
+    held against the port's exact scan. The reference scans and the direct
+    calls launch uncounted; the wide route's recall is also read at
+    SVC_WIDE_EFS through search_batch_wide."""
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+
+    idx = svc.index
+    allowed = storage.filter_by_metadata({"tag": 3})
+    with uncounted():
+        before = l2_topk.launches - l2_topk.launches_bf16
+        _, truth = idx.search_batch_scan(queries, K, mode="exact")
+        if l2_topk.launches - l2_topk.launches_bf16 == before:
+            raise AssertionError("exact scan: no l2_topk f32 launch")
+        _, ftruth = idx.search_batch_scan(queries, K, mode="exact",
+                                          filter_ids=allowed)
+    rng = np.random.default_rng(6)
+    batches = [queries + 0.01 * rng.standard_normal(queries.shape).astype(
+        np.float32) for _ in range(5)]
+    wb = queries[:SVC_WIDE_B]
+    ef = 50     # the API's default ef
+    routes = {
+        "scan": (lambda q: svc.search_batch(q, K),
+                 lambda q: idx.search_batch_scan(q, K, filter_ids=None),
+                 batches, truth),
+        "wide": (lambda q: svc.search_batch(q, K),
+                 lambda q: idx.search_batch_wide(
+                     q, K, ef=max(4 * max(ef, K), 64), frontier=0, steps=0,
+                     seen_mask=False, filter_ids=None, schedule=None,
+                     merge_kernel=True),
+                 [b[:SVC_WIDE_B] for b in batches], truth[:SVC_WIDE_B]),
+        "filtered": (lambda q: svc.search_batch(q, K, filter_ids=allowed),
+                     lambda q: idx.search_batch_scan(q, K,
+                                                     filter_ids=allowed),
+                     batches, ftruth),
+    }
+    out = {"qps": {}, "recall": {}}
+    for name, (call, direct, qbs, want) in routes.items():
+        q0 = wb if name == "wide" else queries
+        res = call(q0)
+        with uncounted():
+            same_answer(name, res, direct(q0))
+        ids = res[1]
+        if (ids < 0).any() or set(ids.ravel().tolist()) & deleted:
+            raise AssertionError(f"{name}: a pad or a deleted id")
+        if name == "filtered" and not set(ids.ravel().tolist()) <= allowed:
+            raise AssertionError("filtered: a result outside the filter")
+        out["recall"][name] = recall_at(ids, want)
+        out["qps"][name] = median_qps(torch, call, qbs)
+    floors = {"scan": SCAN_FLOOR, "filtered": SCAN_FLOOR,
+              "wide": SVC_WIDE_FLOOR}
+    for name, floor in floors.items():
+        if out["recall"][name] < floor:
+            raise AssertionError(f"{name} route: recall@{K} "
+                                 f"{out['recall'][name]} < {floor}")
+    say(f"searches through IndexingService: QPS {out['qps']}, recall@{K} "
+        f"{out['recall']} against the port's exact scan (l2_topk f32; the "
+        f"filtered one over the {len(allowed)} ids of filter_by_metadata"
+        f"({{'tag': 3}})); floors {floors}; every answer equal to the "
+        "direct index call; no deleted id; filtered results inside the "
+        "filter")
+    with uncounted():
+        out["wide_efs"] = {e: recall_at(idx.search_batch_wide(
+            wb, K, ef=e, frontier=0, steps=0, seen_mask=False,
+            merge_kernel=True)[1], truth[:SVC_WIDE_B]) for e in SVC_WIDE_EFS}
+    say(f"the wide route's {SVC_WIDE_B} queries through search_batch_wide "
+        f"at the route's ef {max(4 * max(ef, K), 64)} (the API's default "
+        f"ef {ef}): recall@{K} {out['recall']['wide']}; at ef "
+        f"{SVC_WIDE_EFS}: {out['wide_efs']} (the same graph, frontier and "
+        "steps from ef)")
+
+    single = []
+    for i in range(SVC_SINGLE_Q):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = svc.search(queries[i], k=K)
+        torch.cuda.synchronize()
+        single.append((time.perf_counter() - t0) * 1e3)
+        if i < SVC_CHECKED:
+            with uncounted():
+                _, want = routes["wide"][1](queries[i:i + 1])
+            if [n.id for n, _ in res] != [int(v) for v in want[0] if v >= 0]:
+                raise AssertionError("single query: the service's answer "
+                                     "differs from the direct index call")
+    out["single_p50"] = float(np.percentile(single, 50))
+    out["single_p99"] = float(np.percentile(single, 99))
+    say(f"{SVC_SINGLE_Q} single-query IndexingService.search calls (the "
+        f"wide route, B = 1): p50 {out['single_p50']:.3f} ms, p99 "
+        f"{out['single_p99']:.3f} ms, max {max(single):.3f} ms (host clock, "
+        f"synced); the first {min(SVC_CHECKED, SVC_SINGLE_Q)} equal the "
+        "direct index call")
+    return out
+
+
+def check_l2_calls(torch, say, label, call, dtype):
+    """Every l2_topk call that ``call()`` makes, at its own inputs, against
+    l2_topk_plain; each over a table of ``dtype``. Returns the max abs
+    err."""
+    from vector_db_tpu_torch.ops import exact
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
+
+    err = 0.0
+    for (q, tab, valid, k), opts in captured(exact, "l2_topk", call):
+        sq = opts.get("x_sq")
+        if sq is None:
+            sq = (tab.float() * tab.float()).sum(-1)
+        name = (f"{label}: l2_topk {tab.dtype} n={tab.shape[0]} "
+                f"d={tab.shape[1]} b={q.shape[0]} k={k}, "
+                f"{int(valid.sum())} valid rows")
+        if tab.dtype != dtype:
+            raise AssertionError(f"{name}: not over a {dtype} table")
+        e = check_topk(name, *l2_topk(q, tab, valid, k, x_sq=sq),
+                       *l2_topk_plain(q, tab, valid, k + 1, sq), group=k,
+                       scale=((q * q).sum(-1) + sq.max()).cpu().numpy())
+        say(f"{name} against l2_topk_plain: max abs err {e}")
+        err = max(err, e)
+    return err
+
+
+def svc_kernel_checks(torch, say, svc, queries, allowed):
+    """The kernels at the inputs the service's search routes give them,
+    held against their plain versions, uncounted: l2_topk over the bf16
+    scan mirror (the scan route, and the filtered one with the filter in
+    its mask), and sorted_topk on every merge of the wide route (B =
+    SVC_WIDE_B and a single query). Returns {kernel: max abs err}."""
+    from vector_db_tpu_torch.index import wide_beam
+    from vector_db_tpu_torch.ops.cuda.sorted_topk import (
+        sorted_topk, sorted_topk_plain)
+
+    errs = {"l2_topk_bf16": 0.0, "sorted_topk": 0.0}
+    with uncounted():
+        for label, kw in (("scan", {}), ("filtered", {"filter_ids": allowed})):
+            errs["l2_topk_bf16"] = max(errs["l2_topk_bf16"], check_l2_calls(
+                torch, say, f"service {label} route",
+                lambda: svc.search_batch(queries, K, **kw), torch.bfloat16))
+        for label, call in (
+                (f"B = {SVC_WIDE_B}",
+                 lambda: svc.search_batch(queries[:SVC_WIDE_B], K)),
+                ("B = 1", lambda: svc.search(queries[0], k=K))):
+            calls = captured(wide_beam, "sorted_topk", call)
+            shapes, err = set(), 0.0
+            for args, opts in calls:
+                d, v, topk = args[:3]
+                shapes.add((str(d.dtype), *d.shape, topk))
+                err = max(err, check_sorted(
+                    f"service wide route {label}: sorted_topk",
+                    sorted_topk(*args, **opts),
+                    sorted_topk_plain(d, v, topk + 1)))
+            say(f"service wide route {label}: sorted_topk on its "
+                f"{len(calls)} merges (keys dtype, B, width, topk: "
+                f"{sorted(shapes)}) against sorted_topk_plain: keys equal, "
+                f"payloads equal within runs of equal keys, max abs err "
+                f"{err}")
+            errs["sorted_topk"] = max(errs["sorted_topk"], err)
+    return errs
+
+
+def svc_full_width(say, tmp, nodes):
+    """A StorageService at the reference's field widths (MMapNodeStorage's
+    defaults, 10,240 / 5,120 characters) and the deployment's capacity:
+    create, save_many of the first SVC_FULL_ROWS nodes in batches of
+    SVC_BATCH, then a reopen (the restart's metadata hydration). Returns
+    (save_many docs/s, reopen s)."""
+    import shutil
+
+    from vector_db_tpu_torch.services.storage_service import StorageService
+
+    path = tmp / "full" / "vdb"
+    t0 = time.perf_counter()
+    st = StorageService(str(path), dim=SVC_DIM, capacity=SVC_N)
+    create_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for s in range(0, SVC_FULL_ROWS, SVC_BATCH):
+        st.save_many(nodes[s:min(s + SVC_BATCH, SVC_FULL_ROWS)])
+    save_s = time.perf_counter() - t0
+    st.close()
+    meta = path.with_suffix(".metadata.npy")
+    apparent, on_disk = os.path.getsize(meta), os.stat(meta).st_blocks * 512
+    t0 = time.perf_counter()
+    st = StorageService(str(path), dim=SVC_DIM, capacity=SVC_N)
+    reopen_s = time.perf_counter() - t0
+    tagged = len(st.filter_by_metadata({"tag": 3}))
+    if st.size() != SVC_FULL_ROWS or tagged != len(range(3, SVC_FULL_ROWS,
+                                                         SVC_TAGS)):
+        raise AssertionError(f"full-width storage: {st.size()} rows, "
+                             f"{tagged} tagged 3")
+    st.close()
+    shutil.rmtree(tmp / "full")
+    rate = SVC_FULL_ROWS / save_s
+    say(f"StorageService at the reference's widths (content 10,240 / "
+        f"metadata 5,120 characters, capacity {SVC_N}): create "
+        f"{create_s:.2f} s, save_many of {SVC_FULL_ROWS} docs in batches of "
+        f"{SVC_BATCH} {save_s:.2f} s ({rate:.1f} docs/s, host clock), "
+        f"reopen with the metadata hydration {reopen_s:.2f} s; metadata "
+        f"file {apparent} bytes, {on_disk} on disk; at {SVC_N} rows the same "
+        f"rates would take {SVC_N / rate:.1f} s to save and "
+        f"{reopen_s * SVC_N / SVC_FULL_ROWS:.1f} s to reopen (linear)")
+    return rate, reopen_s
+
+
+def svc_small_types(torch, say, tmp, x, queries):
+    """Step e: a flat (f32) and an IVF-PQ service over the first
+    SVC_SMALL_N rows; their answers equal the direct index calls (made
+    uncounted), and adc_probe at the IVF route's inputs equals its plain
+    version."""
+    from vector_db_tpu_torch.index import ivf as ivf_index
+    from vector_db_tpu_torch.ops.cuda.adc_probe import (
+        adc_probe_plain, adc_probe_scores)
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.services.indexing_service import IndexingService
+    from vector_db_tpu_torch.storage import InMemoryNodeStorage
+    from vector_db_tpu_torch.types import Node
+
+    nodes = [Node(id=i, embedding=x[i]) for i in range(SVC_SMALL_N)]
+    flat_ids = None
+    out = {}
+    for kind, extra in (("flat", {}),
+                        ("ivf", {"ivf_k": SVC_IVF_K,
+                                 "pq": {"chunks": SVC_PQ_M,
+                                        "min_size": SVC_MIN_SIZE}})):
+        cfg = svc_config(tmp / f"{kind}.yaml", tmp / kind, type=kind, **extra)
+        counts = (l2_topk.launches - l2_topk.launches_bf16,
+                  adc_probe_scores.launches)
+        t0 = time.perf_counter()
+        svc = IndexingService(storage=InMemoryNodeStorage(), config_path=cfg,
+                              index_file=str(tmp / f"{kind}.npz"))
+        svc.insert_nodes(nodes)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = svc.search_batch(queries, K)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launched = (l2_topk.launches - l2_topk.launches_bf16 - counts[0],
+                    adc_probe_scores.launches - counts[1])
+        with uncounted():
+            if kind == "flat":
+                want = svc.index.search_batch(queries, K, filter_ids=None)
+                flat_ids = got[1]
+                out["l2_err"] = check_l2_calls(
+                    torch, say, "flat service",
+                    lambda: svc.search_batch(queries, K), torch.float32)
+            else:
+                if not svc._pq_active:
+                    raise AssertionError("ivf: PQ did not activate")
+                want = svc.index.search_batch(queries, n_probe=10, top_k=K,
+                                              filter_ids=None, pq=True,
+                                              adc="pallas")
+                out["adc_err"] = 0.0
+                calls = captured(ivf_index, "adc_probe_scores",
+                                 lambda: svc.search_batch(queries, K))
+                for (lut, codes, corr, ok), _ in calls:
+                    out["adc_err"] = max(out["adc_err"], check_topk(
+                        "ivf service: adc_probe", adc_probe_scores(
+                            lut, codes, corr, ok), None,
+                        adc_probe_plain(lut, codes, corr, ok), None,
+                        group=codes.shape[1], scale=adc_terms(lut, corr)))
+                say(f"ivf service: adc_probe on its {len(calls)} query "
+                    f"blocks (B = {lut.shape[0]} at the last, P = "
+                    f"{codes.shape[1]}, m = {codes.shape[2]}, ksub = "
+                    f"{lut.shape[2]}) against adc_probe_plain: max abs err "
+                    f"{out['adc_err']}")
+        same_answer(kind, got, want)
+        if launched[0 if kind == "flat" else 1] <= 0:
+            raise AssertionError(f"{kind}: its kernel did not launch")
+        out[kind] = {"ingest_s": ingest_s, "first_search_s": first_s,
+                     "qps": median_qps(torch, lambda q: svc.search_batch(
+                         q, K), [queries] * 5),
+                     "recall": recall_at(got[1], flat_ids),
+                     "l2_topk_f32": launched[0], "adc_probe": launched[1]}
+        say(f"{kind} service at {SVC_SMALL_N} x {SVC_DIM}: ingest "
+            f"{ingest_s:.2f} s, first search {first_s:.2f} s"
+            + (" (PQ training included)" if kind == "ivf" else "")
+            + f", QPS {out[kind]['qps']:.1f} at B = {len(queries)}, "
+            f"recall@{K} {out[kind]['recall']:.4f} against the flat "
+            f"service; equal to the direct index call; launches l2_topk f32 "
+            f"{launched[0]}, adc_probe {launched[1]}")
+        del svc
+    return out
+
+
+def svc_http(torch, say, cfg, storage, svc, texts):
+    """Step f: the port's app over the restarted services, in process on
+    127.0.0.1, driven by an HTTP client one request at a time: requests/s
+    per route; the embedded documents are found, /health counts them and
+    /stats names the card."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from vector_db_tpu_torch.api.app import create_app
+    from vector_db_tpu_torch.services.embedding_service import (
+        EmbeddingService)
+
+    n = SVC_HTTP
+    rates = {}
+
+    async def timed(route, count, send):
+        t0 = time.perf_counter()
+        for i in range(count):
+            r = await send(i)
+            if r.status != 200:
+                raise AssertionError(f"{route}: HTTP {r.status} "
+                                     f"{await r.text()}")
+            body = await r.json()
+        rates[route] = count / (time.perf_counter() - t0)
+        return body
+
+    async def drive():
+        # the kernels are built and the mirrors warm by now: the app's own
+        # warm-up search is off (it would print a line of its own)
+        os.environ["VDB_TPU_WARMUP"] = "0"
+        app = create_app(config_path=cfg,
+                         embedding_client=EmbeddingService(cfg),
+                         storage_service=storage, indexing_service=svc)
+        client = TestClient(TestServer(app, host="127.0.0.1"))
+        await client.start_server()
+        size0 = svc.get_index_size()
+        await timed("POST /embed", n["embed"], lambda i: client.post(
+            "/embed", json={"content": texts[i], "metadata": {"tag": 99}}))
+        await timed("POST /embed/batch-docs", n["batch_docs"],
+                    lambda i: client.post("/embed/batch-docs", json={
+                        "contents": [f"http batch doc {i} {j}" for j in
+                                     range(n["batch_docs_size"])]}))
+        body = await timed("POST /search", n["search"], lambda i: client.post(
+            "/search", json={"query": texts[i % n["embed"]], "top_k": K}))
+        if body["results"][0]["content"] != texts[(n["search"] - 1)
+                                                  % n["embed"]]:
+            raise AssertionError("/search: an embedded doc is not its own "
+                                 "top-1")
+        body = await timed("POST /search/batch", n["search_batch"],
+                           lambda i: client.post("/search/batch", json={
+                               "queries": texts[:n["embed"]], "top_k": K,
+                               "metadata_filter": {"tag": 99}}))
+        if [r[0]["content"] for r in body["results"]] != \
+                texts[:n["embed"]]:
+            raise AssertionError("/search/batch: wrong top-1")
+        health = await timed("GET /health", n["health"],
+                             lambda i: client.get("/health"))
+        stats = await timed("GET /stats", n["stats"],
+                            lambda i: client.get("/stats"))
+        await client.close()
+        grown = n["embed"] + n["batch_docs"] * n["batch_docs_size"]
+        if health["index_size"] != size0 + grown:
+            raise AssertionError(f"/health: {health}")
+        name = torch.cuda.get_device_name(0)
+        if not any(name in d for d in stats["device"]["devices"]):
+            raise AssertionError(f"/stats does not name {name}: {stats}")
+        return stats
+
+    stats = asyncio.run(drive())
+    say(f"HTTP app (create_app over the restarted services, aiohttp on "
+        f"127.0.0.1, one request at a time): requests/s "
+        f"{ {k: round(v, 1) for k, v in rates.items()} }; /stats device "
+        f"{stats['device']['devices']}")
+    return rates
+
+
+def phase_services(torch, kernels, card):
+    """Phase 6: the port's services at the deployment of config.yaml
+    (MiniLM-L6 widths, d = 384, capacity 1,000,000, HNSW M 16 /
+    ef_construction 200, flush_threshold 1000) on the card. The kernels'
+    checks at the routes' inputs fold into ``kernels``' max_abs_err."""
+    import functools
+    import tempfile
+    from pathlib import Path
+
+    from vector_db_tpu_torch import embedding_like
+    from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
+    from vector_db_tpu_torch.services import storage_service
+    from vector_db_tpu_torch.services.indexing_service import IndexingService
+    from vector_db_tpu_torch.storage import MMapNodeStorage
+    from vector_db_tpu_torch.types import Node
+
+    def say(msg):
+        log(f"{msg} [{card}]")
+
+    t0 = time.perf_counter()
+    x = embedding_like(SVC_N + SVC_QUERIES, SVC_DIM, seed=2, device="numpy")
+    queries = np.ascontiguousarray(x[SVC_N:])
+    x = x[:SVC_N]
+    nodes = [Node(id=i, embedding=x[i], metadata={"tag": i % SVC_TAGS})
+             for i in range(SVC_N)]
+    n_bulk = SVC_N - SVC_BATCHES * SVC_BATCH - SVC_SINGLE
+    say(f"corpus {SVC_N} x {SVC_DIM} (embedding_like seed 2), {SVC_QUERIES} "
+        f"queries and {SVC_N} Nodes made ({time.perf_counter() - t0:.1f} s, "
+        "host)")
+    with tempfile.TemporaryDirectory() as tmp:
+        full_rate, full_reopen_s = svc_full_width(say, Path(tmp), nodes)
+    real_mmap = storage_service.MMapNodeStorage
+    storage_service.MMapNodeStorage = functools.partial(
+        MMapNodeStorage, content_chars=SVC_FIELD_CHARS,
+        metadata_chars=SVC_FIELD_CHARS)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            cfg = svc_config(
+                tmp / "config.yaml", tmp / "vdb", type="hnsw",
+                scan_batch_threshold=SVC_SCAN_THRESHOLD,
+                filtered_engine="scan",
+                wide={"enabled": True, "dims": 120, "seeds": 4096,
+                      "min_size": SVC_MIN_SIZE, "merge_kernel": "auto"})
+            # the services' path: counts at 0 just before it
+            l2_topk.launches = l2_topk.launches_bf16 = 0
+            sorted_topk.launches = 0
+            adc_probe_scores.launches = 0
+            storage = storage_service.StorageService(
+                str(tmp / "vdb"), dim=SVC_DIM, capacity=SVC_N)
+            svc = IndexingService(storage=storage.storage, config_path=cfg)
+            a = svc_ingest(torch, say, storage, svc, nodes, n_bulk)
+            fold_err(kernels, "l2_topk", a["scan_err"])
+
+            # b: restart on the same files
+            storage.close()
+            del svc, storage
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            storage = storage_service.StorageService(
+                str(tmp / "vdb"), dim=SVC_DIM, capacity=SVC_N)
+            t1 = time.perf_counter()
+            svc = IndexingService(storage=storage.storage, config_path=cfg)
+            t2 = time.perf_counter()
+            first = svc.search(queries[0], k=K)
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            size = n_bulk + SVC_BATCHES * SVC_BATCH
+            if not svc.is_index_loaded() or svc.get_index_size() != size \
+                    or storage.size() != size or not first:
+                raise AssertionError(f"restart: loaded "
+                                     f"{svc.is_index_loaded()}, size "
+                                     f"{svc.get_index_size()}, not {size}")
+            say(f"restart: time to serve {serve_s:.2f} s (StorageService "
+                f"{t1 - t0:.2f} s with the metadata index, IndexingService "
+                f"{t2 - t1:.2f} s: npz, hydration, recover_unlinked; the "
+                f"first search {serve_s - (t2 - t0):.2f} s, enable_wide "
+                f"included); index_loaded, size {size}")
+
+            # c: single documents, each past the threshold (sync save)
+            single = []
+            for node in nodes[size:]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                storage.save(node)
+                svc.insert_node(node)
+                torch.cuda.synchronize()
+                single.append((time.perf_counter() - t0) * 1e3)
+            npz = os.path.getsize(svc.index_file)
+            if svc.get_index_size() != SVC_N or svc._index_modified:
+                raise AssertionError("single inserts: size or save")
+            with uncounted():
+                _, top1 = svc.index.search_batch_scan(queries[:SVC_DELETE],
+                                                      1, mode="exact")
+            deleted = set(top1[:, 0].tolist())
+            for i in deleted:
+                svc.delete_node(i)
+            # the wide route's mirror rebuilds after every write
+            after_write = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                svc.search(queries[0], k=K)
+                torch.cuda.synchronize()
+                after_write.append((time.perf_counter() - t0) * 1e3)
+            say(f"{SVC_SINGLE} single inserts (StorageService.save + "
+                f"IndexingService.insert_node, each saving {npz} bytes of "
+                f"npz): p50 {np.percentile(single, 50):.1f} ms, max "
+                f"{max(single):.1f} ms; size {SVC_N}; deleted {len(deleted)}"
+                f" ids (the exact top-1 of {SVC_DELETE} queries); the first "
+                f"single query after the writes {after_write[0]:.1f} ms "
+                f"(the wide mirror rebuilt), the next {after_write[1]:.1f} "
+                "ms")
+
+            # d: searches through the service
+            d = svc_searches(torch, say, svc, storage, queries, deleted)
+            counts = {"l2_topk": l2_topk.launches - l2_topk.launches_bf16,
+                      "l2_topk_bf16": l2_topk.launches_bf16,
+                      "sorted_topk": sorted_topk.launches}
+            for name, c in counts.items():
+                if c <= 0:
+                    raise AssertionError(f"{name}: no launch on the "
+                                         "services' path")
+            say(f"launches of the services' own calls (ingest, restart, "
+                f"single inserts, deletes, searches through IndexingService;"
+                f" the reference scans, direct index calls and plain checks "
+                f"excluded): {counts}")
+            errs = svc_kernel_checks(torch, say, svc, queries,
+                                     storage.filter_by_metadata({"tag": 3}))
+            for name, err in errs.items():
+                fold_err(kernels, name, err)
+            e = svc_small_types(torch, say, tmp, x, queries)
+            fold_err(kernels, "adc_probe", e["adc_err"])
+            fold_err(kernels, "l2_topk", e["l2_err"])
+            if e["ivf"]["adc_probe"] <= 0:
+                raise AssertionError("adc_probe: no launch on the IVF route")
+            f = svc_http(torch, say, cfg, storage, svc,
+                         [f"http doc {i}" for i in range(SVC_HTTP["embed"])])
+            scan_rows = profile(torch, "service scan route (B = "
+                                f"{SVC_QUERIES})", lambda: svc.search_batch(
+                                    queries, K))
+            single_rows = profile(torch, "service single query",
+                                  lambda: svc.search(queries[1], k=K))
+            storage.close()
+    finally:
+        storage_service.MMapNodeStorage = real_mmap
+    say(f"services summary: ingest docs/s bulk {a['bulk_docs_s']:.1f}, "
+        f"streamed {a['stream_docs_s']:.1f} (storage fields "
+        f"{SVC_FIELD_CHARS} characters; full-width save_many "
+        f"{full_rate:.1f} docs/s over {SVC_FULL_ROWS} rows, reopen "
+        f"{full_reopen_s:.2f} s); flushes {a['flushes']}; time to "
+        f"serve {serve_s:.2f} s; single insert p50 "
+        f"{np.percentile(single, 50):.1f} / max {max(single):.1f} ms; QPS "
+        f"{d['qps']}; recall@{K} {d['recall']} (wide at ef "
+        f"{d['wide_efs']}); single query p50 "
+        f"{d['single_p50']:.3f} / p99 {d['single_p99']:.3f} ms; ingest peak "
+        f"{a['peak']} bytes; launches {counts}, adc_probe "
+        f"{e['ivf']['adc_probe']}; plain-check max abs err {errs}, "
+        f"insert scan {a['scan_err']}, flat l2_topk {e['l2_err']}, "
+        f"adc_probe {e['adc_err']}; flat "
+        f"{e['flat']['qps']:.1f} QPS, IVF-PQ "
+        f"{e['ivf']['qps']:.1f} QPS recall {e['ivf']['recall']:.4f}; HTTP "
+        f"requests/s { {k: round(v, 1) for k, v in f.items()} }; profiled "
+        f"{len(scan_rows)} + {len(single_rows)} device rows")
+
+
 def main() -> int:
     import torch
 
@@ -1552,6 +2296,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_hnsw(torch, kernels)
     log(f"phase 5 ok on {card} ({time.perf_counter() - t0:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_services(torch, kernels, card)
+    log(f"phase 6 ok on {card} ({time.perf_counter() - t0:.1f} s)")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     if any(m == "vector_db_tpu" or m.startswith("vector_db_tpu.")

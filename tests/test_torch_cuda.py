@@ -742,3 +742,106 @@ def test_hnsw_save_on_one_device_load_on_the_other(cuda, tmp_path, saver):
     # one graph, two devices' f32 sums: ids as sets, near-ties may swap
     a, b = dst.search_batch(q, 10, ef=64)[1], src.search_batch(q, 10, ef=64)[1]
     assert np.mean([set(u) == set(v) for u, v in zip(a, b)]) >= 0.95
+
+
+def _svc_config(tmp_path, **index):
+    import yaml
+
+    cfg = {"embedding": {"model": "fake-32", "dimension": 32},
+           "device": "cuda",
+           "index": {"M": 8, "ef_construction": 64, "flush_threshold": 1000,
+                     **index},
+           "vector_db": {"file_path": str(tmp_path / "vdb"), "dimension": 32,
+                         "capacity": 8192}}
+    p = tmp_path / "config.yaml"
+    p.write_text(yaml.safe_dump(cfg))
+    return str(p)
+
+
+def _same(got, want):
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+def test_hnsw_service_routes_on_cuda(cuda, tmp_path):
+    """The hnsw service with device: cuda: the bulk route, a streamed
+    batch, then the scan, wide (merge_kernel auto: on), filtered and
+    single-query routes, each equal to the direct index call, and the
+    scan's exact mode equal to the same table's scan on the CPU."""
+    import random
+
+    from vector_db_tpu_torch.datasets import embedding_like
+    from vector_db_tpu_torch.index.hnsw import HNSW
+    from vector_db_tpu_torch.services.indexing_service import IndexingService
+    from vector_db_tpu_torch.services.storage_service import StorageService
+    from vector_db_tpu_torch.types import Node
+
+    x = embedding_like(6000 + 300, 32, seed=4)
+    q = np.ascontiguousarray(x[6000:])
+    nodes = [Node(id=i, embedding=x[i], metadata={"t": i % 4})
+             for i in range(6000)]
+    cfg = _svc_config(tmp_path, scan_batch_threshold=128,
+                      wide={"dims": 0, "seeds": 256, "min_size": 1024,
+                            "merge_kernel": "auto"})
+    st = StorageService(str(tmp_path / "vdb"), dim=32, capacity=8192)
+    svc = IndexingService(storage=st.storage, config_path=cfg)
+    assert svc.index.device.type == "cuda" and svc._resolve_merge_kernel()
+    st.save_many(nodes[:5000])
+    svc.insert_nodes(nodes[:5000])            # the bulk route
+    l2_topk.launches = l2_topk.launches_bf16 = sorted_topk.launches = 0
+    st.save_many(nodes[5000:])
+    svc.insert_nodes(nodes[5000:])            # streamed
+    assert l2_topk.launches > 0
+    idx = svc.index
+    _same(svc.search_batch(q, 10), idx.search_batch_scan(q, 10))
+    assert l2_topk.launches_bf16 > 0
+    _same(svc.search_batch(q[:16], 10),
+          idx.search_batch_wide(q[:16], 10, ef=200, seen_mask=False,
+                                merge_kernel=True))
+    assert sorted_topk.launches > 0
+    allowed = st.filter_by_metadata({"t": 1})
+    got = svc.search_batch(q[:16], 10, filter_ids=allowed)
+    _same(got, idx.search_batch_scan(q[:16], 10, filter_ids=allowed))
+    assert set(got[1].ravel().tolist()) <= allowed
+    res = svc.search(q[0], k=10)
+    assert [n.id for n, _ in res] == idx.search_batch_wide(
+        q[:1], 10, ef=200, seen_mask=False, merge_kernel=True)[1][0].tolist()
+    cpu_idx = HNSW(M=8, ef_construction=64, rng=random.Random(0),
+                   device="cpu")
+    g = idx.graph
+    cpu_idx.load_state(g.neighbors.cpu().numpy(), g.levels.cpu().numpy(),
+                       g.entry, g.entry_level, idx._emb.cpu().numpy(),
+                       idx._has_emb.cpu().numpy(), idx._id_of_slot)
+    d_c, i_c = cpu_idx.search_batch_scan(q, 10, mode="exact")
+    d_g, i_g = idx.search_batch_scan(q, 10, mode="exact")
+    assert_topk_parity(d_g ** 2, i_g, d_c ** 2, i_c, scale=2.0)
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf"])
+def test_flat_and_ivf_services_on_cuda(cuda, tmp_path, kind):
+    """The flat (l2_topk) and IVF-PQ (adc_probe) services with device:
+    cuda: answers equal to the direct index calls."""
+    from vector_db_tpu_torch.datasets import embedding_like
+    from vector_db_tpu_torch.services.indexing_service import IndexingService
+    from vector_db_tpu_torch.storage import InMemoryNodeStorage
+    from vector_db_tpu_torch.types import Node
+
+    x = embedding_like(5000 + 64, 32, seed=5)
+    q = np.ascontiguousarray(x[5000:])
+    extra = ({"ivf_k": 32, "pq": {"chunks": 8, "min_size": 1024}}
+             if kind == "ivf" else {})
+    cfg = _svc_config(tmp_path, type=kind, **extra)
+    svc = IndexingService(storage=InMemoryNodeStorage(), config_path=cfg,
+                          index_file=str(tmp_path / "i.npz"))
+    svc.insert_nodes([Node(id=i, embedding=x[i]) for i in range(5000)])
+    l2_topk.launches = adc_probe_scores.launches = 0
+    got = svc.search_batch(q, 10)
+    if kind == "flat":
+        _same(got, svc.index.search_batch(q, 10, filter_ids=None))
+        assert l2_topk.launches > 0
+    else:
+        assert svc._pq_active
+        _same(got, svc.index.search_batch(q, n_probe=10, top_k=10,
+                                          filter_ids=None, pq=True,
+                                          adc="pallas"))
+        assert adc_probe_scores.launches > 0

@@ -298,7 +298,9 @@ def test_insert_nodes_bulk_builds_an_empty_index_and_search_returns_nodes():
     lambda i: i.search_batch_pq(np.zeros((1, 8)), 3),
     lambda i: i.search_batch_rp(np.zeros((1, 8)), 3),
     lambda i: i.search_batch_beam(np.zeros((1, 8)), 3),
-    lambda i: i.search_batch_scan(np.zeros((1, 8)), 3),
+    lambda i: (i.enable_wide(dims=None, seeds=8),
+               i.search_batch_wide(np.zeros((1, 8), np.float32), 3,
+                                   score="rp")),
     lambda i: i.refresh_pq_codes(),
     lambda i: (i.enable_wide(dims=None, seeds=8),
                i.search_batch_wide(np.zeros((1, 8), np.float32), 3,

@@ -1,7 +1,7 @@
 """vector_db_tpu_torch runs without jax and without any module of the JAX
-package vector_db_tpu (FlatIndex, IVF-PQ, and HNSW end to end with inserts
-and persistence), and never
-falls back to the CPU when a GPU was asked for."""
+package vector_db_tpu (FlatIndex, IVF-PQ, HNSW end to end with inserts and
+persistence, and the serving layer: StorageService, IndexingService and the
+app factory), and never falls back to the CPU when a GPU was asked for."""
 
 import subprocess
 import sys
@@ -88,6 +88,57 @@ def test_port_never_imports_jax():
             assert (h2.search_batch(xe[:3], 4, ef=32)[1]
                     == h.search_batch(xe[:3], 4, ef=32)[1]).all()
             st.close()
+        # the serving layer: the indexing service loads neither httpx nor
+        # aiohttp; a config-driven service over StorageService, then the
+        # app factory and a request through it
+        import asyncio
+        import os
+        import yaml
+        import vector_db_tpu_torch.services.indexing_service as isvc
+        from vector_db_tpu_torch.services import StorageService
+        assert "httpx" not in sys.modules and "aiohttp" not in sys.modules
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = Path(tmp) / "c.yaml"
+            cfg.write_text(yaml.safe_dump({
+                "embedding": {"model": "fake-16", "dimension": 16},
+                "device": "cpu",
+                "index": {"M": 4, "ef_construction": 30,
+                          "flush_threshold": 8, "scan_batch_threshold": 4,
+                          "wide": {"dims": 0, "seeds": 32, "min_size": 16}},
+                "vector_db": {"file_path": str(Path(tmp) / "vdb"),
+                              "dimension": 16, "capacity": 256}}))
+            st = StorageService(str(Path(tmp) / "vdb"), dim=16, capacity=256)
+            svc = isvc.IndexingService(storage=st.storage,
+                                       config_path=str(cfg))
+            nodes = [vt.Node(id=i, embedding=xe[i], metadata={"g": i % 2})
+                     for i in range(64)]
+            st.save_many(nodes)
+            svc.insert_nodes(nodes)
+            svc.wait_for_flush()
+            _, ids = svc.search_batch(xe[:4], 3)
+            assert (ids[:, 0] == [0, 1, 2, 3]).all(), ids
+            assert svc.search(xe[5], 3, filter_ids=st.filter_by_metadata(
+                {"g": 1}))[0][0].id == 5
+            from aiohttp.test_utils import TestClient, TestServer
+            from vector_db_tpu_torch.api.app import create_app
+            from vector_db_tpu_torch.services import EmbeddingService
+
+            async def drive():
+                client = TestClient(TestServer(create_app(
+                    config_path=str(cfg),
+                    embedding_client=EmbeddingService(str(cfg)),
+                    storage_service=st, indexing_service=svc)))
+                await client.start_server()
+                r = await client.post("/embed", json={"content": "one"})
+                assert r.status == 200
+                r = await client.post("/search", json={"query": "one",
+                                                       "top_k": 1})
+                body = await r.json()
+                assert body["results"][0]["content"] == "one", body
+                await client.close()
+
+            os.environ["VDB_TPU_WARMUP"] = "0"   # keep stdout to one line
+            asyncio.run(drive())
         assert "jax" not in sys.modules, sorted(
             m for m in sys.modules if m.startswith("jax"))
         jax_pkg = sorted(m for m in sys.modules

@@ -21,6 +21,19 @@ def resolve_device(spec="cuda") -> torch.device:
     return dev
 
 
+# a config file's names for the card: the port's own, and the JAX package's
+_ACCELERATOR = ("cuda", "auto", "tpu")
+
+
+def config_device(spec="cuda") -> torch.device:
+    """The index's device for a config file's ``device`` value
+    (case-insensitive): the card for ``cuda``, ``auto`` and ``tpu`` (the JAX
+    package's names for the accelerator), which raises without one; the
+    CPU for ``cpu``."""
+    name = str(spec or "cuda").lower()
+    return resolve_device("cuda" if name in _ACCELERATOR else name)
+
+
 def require_f32_matmul(t: torch.Tensor) -> None:
     """Raise if a float32 matrix product on ``t``'s device may run in TF32.
 

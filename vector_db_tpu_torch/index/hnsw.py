@@ -18,10 +18,11 @@ batch), delete, the classic best-first search (``search_batch``,
 and persistence in the JAX package's split-adjacency npz
 (``save_index``, ``load_index``, ``snapshot_for_save``,
 ``write_snapshot``; a load re-links rows that storage holds and the
-graph does not, ``recover_unlinked``). ``load_state`` adopts a JAX
-index's arrays. PQ and RP traversal, the pool-free beam and the
-corpus-scan modes raise ``NotImplementedError`` naming their ROADMAP
-item; a loaded file's PQ and RP arrays are kept and written back.
+graph does not, ``recover_unlinked``), and the corpus scans over the same
+table (``search_batch_scan``: bf16, exact, blocksel). ``load_state``
+adopts a JAX index's arrays. PQ and RP traversal and the pool-free beam
+raise ``NotImplementedError`` naming their ROADMAP item; a loaded file's PQ
+and RP arrays are kept and written back.
 
 The tables are updated in place; a mutation counter (``_version``)
 invalidates the derived mirrors (the JAX package tracks array identity).
@@ -42,7 +43,13 @@ from vector_db_tpu_torch.device import resolve_device
 from vector_db_tpu_torch.index import hnsw_kernels as K
 from vector_db_tpu_torch.index import wide_beam as WB
 from vector_db_tpu_torch.index.flat import pca_projection
-from vector_db_tpu_torch.ops.exact import rescore_exact
+from vector_db_tpu_torch.ops.distance import squared_norms
+from vector_db_tpu_torch.ops.exact import (
+    approx_search_tiled,
+    block_select_search,
+    exact_search_tiled,
+    rescore_exact,
+)
 from vector_db_tpu_torch.ops.graph_build import (
     assign_topk_clusters,
     build_forward_edges,
@@ -205,8 +212,9 @@ class HNSW:
         self.graph: Optional[K.Graph] = None
         self._levels_host: Optional[np.ndarray] = None
         self._version = 0       # bumped by every table mutation
-        self._emb16 = None      # (version, bf16 traversal mirror)
+        self._emb16 = None      # (version, bf16 mirror: traversal, scans)
         self._wb = None         # (version, aug mirror, seed slots)
+        self._scan_sq = None    # (version, f32 row norms for the scans)
         self._store = DeviceVectorStore(capacity=capacity,
                                         on_grow=self._grow_graph,
                                         device=self.device)
@@ -522,10 +530,61 @@ class HNSW:
             "the pool-free wide beam (wide_beam.beam_search) is not ported "
             "yet (ROADMAP queue A5.3)")
 
-    def search_batch_scan(self, *args, **kwargs):
-        raise NotImplementedError(
-            "HNSW.search_batch_scan and its block_select_search mode are not "
-            "ported yet (ROADMAP queue A5.1)")
+    def search_batch_scan(
+        self,
+        queries: np.ndarray,
+        k: int,
+        mode: str = "bf16",
+        filter_ids: Optional[Set[int]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """A corpus scan over this index's device table, no graph
+        traversal: batched scans read the table once for the whole batch,
+        so at a large B a scan serves more queries than any traversal, from
+        the same table. ``mode``: "bf16" (the ``l2_topk`` kernel over a bf16
+        mirror, then an exact f32 rescore), "exact" (``l2_topk`` over the
+        f32 table) or "blocksel" (``block_select_search``: bf16 block
+        minima, then an exact rerank of the best blocks). ``filter_ids``
+        folds into the validity mask. k is rounded up to a power of two
+        (at least 8) and cut after the exact rescore, as in the JAX
+        package, so the approximate modes rescore that many candidates.
+        Same return contract as search_batch."""
+        if mode not in ("bf16", "exact", "blocksel"):
+            raise ValueError(f"Unknown scan mode: {mode}")
+        queries = np.asarray(queries, np.float32)
+        b_orig, k_orig = queries.shape[0], k
+        if self.size == 0 or self._emb is None:
+            return (np.full((b_orig, k), np.inf, np.float32),
+                    np.full((b_orig, k), -1, np.int64))
+        k = _up2(k, lo=8)
+        q = torch.from_numpy(queries).to(self.device)
+        valid = self._has_emb
+        if filter_ids is not None:
+            valid = valid & torch.from_numpy(
+                self._store.filter_mask(filter_ids)).to(self.device)
+        cap = self._capacity
+        if mode == "bf16":
+            emb16, x_sq = self._scan_mirror()
+            _, slots = approx_search_tiled(q, emb16, valid, k,
+                                           tile=min(cap, 125000), x_sq=x_sq)
+            d_sq, slots = rescore_exact(q, self._emb, slots)
+        elif mode == "blocksel":
+            emb16, x_sq = self._scan_mirror()
+            # any pow2 tile >= 128 works (the 128-row blocks need tile % 128 == 0)
+            tile = min(131072, max(128, 1 << (cap - 1).bit_length()))
+            d_sq, slots = block_select_search(
+                q, emb16, q, x_sq, self._emb, valid, k, tile=tile,
+                blocks_k=2 * k)
+        else:
+            d_sq, slots = exact_search_tiled(q, self._emb, valid, k,
+                                             tile=min(cap, 32768))
+        return self._to_host(d_sq, slots, b_orig, k_orig)
+
+    def _scan_mirror(self):
+        """(bf16 mirror, f32 row norms) of the table for search_batch_scan,
+        rebuilt after a mutation (cached under ``_version``)."""
+        if self._scan_sq is None or self._scan_sq[0] != self._version:
+            self._scan_sq = (self._version, squared_norms(self._store.emb))
+        return self._emb_bf16(), self._scan_sq[1]
 
     # ------------------------------------------------------------------
     def _pca_proj(self, dims: int) -> torch.Tensor:
@@ -674,10 +733,11 @@ class HNSW:
         return dists.astype(np.float32), ids
 
     def _emb_traverse(self) -> torch.Tensor:
-        """Table for beam traversal: the f32 source, or a bf16 mirror
-        rebuilt after mutations."""
-        if self.precision != "bf16":
-            return self._emb
+        """Table for beam traversal: the f32 source, or the bf16 mirror."""
+        return self._emb if self.precision != "bf16" else self._emb_bf16()
+
+    def _emb_bf16(self) -> torch.Tensor:
+        """bf16 mirror of the table, rebuilt after mutations."""
         if self._emb16 is None or self._emb16[0] != self._version:
             self._emb16 = (self._version, self._store.emb.to(torch.bfloat16))
         return self._emb16[1]

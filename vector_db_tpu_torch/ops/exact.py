@@ -13,9 +13,14 @@ on k alone, to the tiled plain formulation ``l2_topk_plain`` (an f32
 product and a top-k merge per corpus tile, what the JAX package's
 ``exact_search_tiled`` computes), on every device.
 
-Every product under the exact contract (the rescores) is an elementwise
-f32 product (``exact_rows_sq``), so TF32 cannot enter. Selection is exact
-``torch.topk``: the TPU's ``approx_min_k`` has no CUDA counterpart.
+``block_select_search`` (the two-phase block-min scan of
+``HNSW.search_batch_scan(mode="blocksel")``) is plain XLA in the JAX
+package, with no Pallas kernel, and plain torch here.
+
+Every product under the exact contract (the rescores, an ``exact_phase1``)
+is true f32: elementwise (``exact_rows_sq``), or a matmul behind
+``require_f32_matmul``, so TF32 cannot enter. Selection is exact: the
+TPU's ``approx_min_k`` has no CUDA counterpart.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from vector_db_tpu_torch.device import require_f32_matmul
 from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
 from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
 from vector_db_tpu_torch.ops.cuda.l2_topk import MAX_K, l2_topk, l2_topk_plain
@@ -90,6 +96,107 @@ def approx_search_tiled(
     k <= 256 runs the ``l2_topk`` kernel, a larger k its tiled plain scan.
     """
     return _l2_scan(queries, emb, valid, k, x_sq=x_sq, tile=tile)
+
+
+def _smallest_stable(d: torch.Tensor, k: int):
+    """(values, positions) of the k smallest of each row, ascending; ties
+    keep the lower position first (``lax.top_k``'s order)."""
+    d, pos = torch.sort(d, dim=1, stable=True)
+    return d[:, :k], pos[:, :k]
+
+
+_SEL_BLOCK = 128        # block_select_search's rows per block
+_RERANK_QUERIES = 128   # and queries per rerank gather
+
+
+def block_select_search(
+    queries: torch.Tensor,    # f32[B, dim]
+    score_tab: torch.Tensor,  # f32|bf16[N, ds] phase-1 table (full or proj)
+    score_q: torch.Tensor,    # f32[B, ds] queries in score space
+    x_sq: torch.Tensor,       # f32[N] full-space row norms
+    emb: torch.Tensor,        # f32[N, dim] exact rerank table
+    valid: torch.Tensor,      # bool[N]
+    k: int,
+    tile: int = 131072,
+    blocks_k: int = 0,
+    exact_phase1: bool = False,
+    approx_blocks: bool = False,
+    hilo_phase1: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-phase scan: the minimum estimate of every 128 consecutive rows
+    (a block), then an exact f32 rerank of every row of the best
+    ``blocks_k`` blocks (default 2k), 128 queries at a time, and the final
+    top-k cut (the contract of the JAX package's
+    ``vector_db_tpu/ops/exact.py:block_select_search``, whose ``block`` and
+    ``qblock`` no caller sets: fixed at their defaults here).
+
+    Lossless w.r.t. phase-1 scores at blocks_k >= k: a true top-k row's
+    block can be beaten only by blocks holding a closer row. Phase 1 scores
+    in the table's dtype with f32 sums; ``exact_phase1`` requires those
+    sums in true f32 (over an f32 table the result is then the exact
+    top-k); ``hilo_phase1`` in three bf16
+    products of split operands. Blocks are selected exactly, ties to the
+    lower block. ``approx_blocks=True`` (the TPU's ``approx_min_k`` over
+    the block minima) has no CUDA counterpart and raises.
+
+    The corpus is scored ``tile`` rows at a time and counts as padded to a
+    tile multiple (padding blocks score BIG). Returns (d_sq f32[B, k], ids
+    int32[B, k]) ascending, (BIG, -1) padded.
+    """
+    if approx_blocks:
+        raise NotImplementedError(
+            "block_select_search(approx_blocks=True): approx_min_k is TPU "
+            "hardware with no CUDA counterpart; selection is exact")
+    block, qblock = _SEL_BLOCK, _RERANK_QUERIES
+    assert tile % block == 0
+    n, dim = emb.shape
+    b = queries.shape[0]
+    n_blocks = -(-n // tile) * tile // block
+    blocks_k = min(blocks_k or 2 * k, n_blocks)
+    if exact_phase1 or hilo_phase1:
+        require_f32_matmul(emb)
+    if hilo_phase1:
+        sq_hi = score_q.to(torch.bfloat16)
+        sq_lo = (score_q - sq_hi.float()).to(torch.bfloat16)
+    sq = score_q.to(score_tab.dtype)
+
+    mins = torch.full((b, n_blocks), BIG, device=emb.device)
+    for s in range(0, n, tile):
+        t_tab = score_tab[s:s + tile]
+        if hilo_phase1:
+            t_hi = t_tab.to(torch.bfloat16)
+            t_lo = (t_tab.float() - t_hi.float()).to(torch.bfloat16)
+            # bf16 operands multiply exactly in f32; the sums are f32
+            cross = (sq_hi.float() @ t_hi.float().T
+                     + sq_hi.float() @ t_lo.float().T
+                     + sq_lo.float() @ t_hi.float().T)
+        else:
+            cross = sq.float() @ t_tab.float().T
+        d = x_sq[None, s:s + tile] - 2.0 * cross
+        d = torch.where(valid[None, s:s + tile], d, BIG)
+        rows = d.shape[1]
+        if rows % block:
+            d = torch.cat([d, d.new_full((b, block - rows % block), BIG)],
+                          dim=1)
+        mins[:, s // block:s // block + d.shape[1] // block] = d.view(
+            b, -1, block).amin(-1)
+    _, bidx = _smallest_stable(mins, blocks_k)        # int64[B, blocks_k]
+
+    offs = torch.arange(block, device=emb.device)
+    out_d, out_i = [], []
+    for s in range(0, b, qblock):
+        q_c = queries[s:s + qblock]
+        ids = (bidx[s:s + qblock, :, None] * block + offs).flatten(1)
+        ok = ids < n
+        safe = ids.clamp(max=n - 1)
+        ok &= valid[safe]
+        d = exact_rows_sq(q_c, emb[safe])
+        d = torch.where(ok, d.clamp_min(0.0), BIG)
+        dd, pos = _smallest_stable(d, k)
+        ii = torch.gather(safe, 1, pos).int()
+        out_d.append(dd)
+        out_i.append(torch.where(dd < BIG_THRESH, ii, -1))
+    return torch.cat(out_d), torch.cat(out_i)
 
 
 def _final_top_k(
