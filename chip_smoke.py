@@ -23,9 +23,14 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    Jegou et al., FAISS IVF4096,PQ16): IvfIndex over 1M x 128 sift_like rows,
    4096 cells, residual PQ m = 16 with OPQ, add, delete, filter, and
    search_batch at B = 1000 in the PQ-probe (n_probe = 16, fetch = 512)
-   and flat modes against the port's exact scan; then a PQCodec ADC scan
-   of the corpus (adc_topk) against its gather mode, and a FlatIndex search
-   at k = 300 (above l2_topk's 256) against float64;
+   and flat modes against the port's exact scan; enable_rp(dims=128), RP
+   at n_probe 8 and 32 (each held to its probe ceiling less 0.03) and over
+   every cell (the flat mirror on l2_topk or the cell-block scan, as the
+   residual ratio picks), and the residual-PQ full scan at n_probe 4096
+   (adc_topk with its row and group terms, held against its plain version
+   at the scan's own inputs, with its bound and lookup floor); then a
+   PQCodec ADC scan of the corpus (adc_topk) against its gather mode, and a
+   FlatIndex search at k = 300 (above l2_topk's 256) against float64;
 5. HNSW at the repo's 1M benchmark setting (scripts/exp_wide_final.py:38-76,
    scripts/bench_1m.py:85-92), as a user runs it: bulk_build of the first
    983,616 of 1M x 768 embedding_like rows (M = 16, l_max = 5; level 0
@@ -39,8 +44,13 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    F = 224, T = 10 with and without the sorted_topk merge kernel, a
    filtered wide search at 10 % selectivity and the classic beam at
    ef = 400, all at B = 1000 against the port's exact scan; sorted_topk on
-   the main path's own merge input; then save_index, and a reload into a
-   new HNSW over MMapNodeStorage (bit-equal tables, the same ids);
+   the main path's own merge input; enable_rp(128) and projected
+   traversal at ef 400 and 600, enable_pq(16, OPQ 8) and PQ traversal at
+   ef 400, the PQ-scored wide beam (ef 1536, F 256, T 10, sorted_topk),
+   enable_wide(dims=120, inline=True) and the pool-free beam at F 224 and
+   320 (T 12, hist 2) and the inline wide beam at ef 1280; then
+   save_index, and a reload into a new HNSW over MMapNodeStorage
+   (bit-equal tables, the same ids, the PQ / RP state reloaded);
 6. the port's services at the deployment of the repo's config.yaml
    (all-MiniLM-L6-v2 widths, d = 384, capacity 1,000,000, HNSW M = 16,
    ef_construction = 200, flush_threshold = 1000; the fake-384 embedder):
@@ -52,7 +62,9 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    equal to the direct index call and held against the port's exact
    scan; l2_topk, sorted_topk and adc_probe at the inputs the services'
    routes give them against their plain versions; a flat and an IVF-PQ
-   service at 100,000 rows; the HTTP app on 127.0.0.1; each line carries
+   service at 100,000 rows (the PQ probe and the full scan), an IVF
+   service with index.rp, and HNSW services with index.rp, index.pq and
+   index.wide.mode: beam; the HTTP app on 127.0.0.1; each line carries
    the card's name and power limit. The launch counts are the services'
    calls alone. The storage's text fields are SVC_FIELD_CHARS wide (the
    one cut); a StorageService at the reference's widths is timed over
@@ -117,6 +129,18 @@ FETCH = 512
 ADC_B = 128             # adc_topk's main-path shape: B queries, k = 100
 ADC_K = 100
 RECALL_FLOOR = 0.95     # the JAX package recorded 0.977 here
+# phase 4's residual projection and full scans (BENCH_SIFT.json: the JAX
+# package's RP read 0.9485 / 0.9678 / 0.9874 at n_probe 8 / 32 / all, at
+# spill 2; its residual PQ full scan 0.7954 at fetch 128, spill 1, OPQ 4)
+RP_DIMS = 128
+RP_PROBES = (8, 32)     # each held to its probe ceiling (spill 1) less 0.03
+RP_CEIL_SLACK = 0.03
+RP_FETCH = 128
+RP_FULL_FETCH = 256
+RP_FULL_FLOOR = 0.95
+PQ_SCAN_FETCH = 128
+PQ_SCAN_FLOOR = 0.77
+ADC_CHECK_B = 16        # queries of the biased adc_topk's plain check
 # phase 5: HNSW at 1M x 768 (scripts/exp_wide_final.py:38-76)
 HNSW_N = 1_000_000
 HNSW_DIM = 768
@@ -136,6 +160,19 @@ CLASSIC_EF = 400
 FILTER_EVERY = 10       # 10 % selectivity
 WIDE_FLOOR = 0.95       # the JAX package recorded 0.9591 (EXP_WIDE_FINAL)
 CLASSIC_FLOOR = 0.70    # README: 0.775 at ef = 400 on an older graph
+# phase 5's PQ / RP traversals, PQ-scored wide beam and the inline tables
+# with the pool-free beam (BENCH_1M.json, the JAX package's readings less
+# 0.02-0.03: RP 0.7841 / 0.9006 at ef 400 / 600, OPQ classic 0.6596, wide
+# PQ 0.9542, beam 0.9196 / 0.9486 at F 224 / 320)
+HNSW_RP_EFS = {400: 0.76, 600: 0.88}
+HNSW_PQ_EF, HNSW_PQ_FLOOR = 400, 0.63
+HNSW_OPQ_ITERS = 8
+WIDE_PQ = dict(ef=1536, frontier=256, steps=10, rerank_k=1536)
+WIDE_PQ_FLOOR = 0.93
+INLINE_DIMS = 120       # scripts/bench_1m.py:309
+BEAM_T, BEAM_HIST = 12, 2
+BEAM_FLOORS = {224: 0.90, 320: 0.92}
+PERSIST_Q = 200         # queries of the PQ / RP reload comparison
 # phase 6: the services at the config.yaml deployment
 SVC_N = 1_000_000       # config.yaml: vector_db.capacity
 SVC_DIM = 384           # all-MiniLM-L6-v2 (config.yaml: embedding.dimension)
@@ -597,6 +634,12 @@ def phase_kernels(torch, dev, kernels):
         for dtype in (torch.uint8, torch.int32):
             err["adc_topk"] = max(err["adc_topk"], adc_topk_case(
                 3000 + 7, m, ksub, 5, 10, dtype))
+    # long lists: k past 256 (a CTA holds fewer queries), to the 2048 that
+    # the full-scan IVF-PQ's fetch may reach
+    for b, k, vr in ((1, 257, None), (9, 512, None), (130, 1024, None),
+                     (70, 2048, None), (5, 2048, 1500)):
+        err["adc_topk"] = max(err["adc_topk"], adc_topk_case(
+            30000 + 11, 16, 256, b, k, torch.uint8, valid_rows=vr))
     for m, ksub in ((240, 16), (200, 256)):
         err["adc_probe"] = max(err["adc_probe"], adc_probe_case(
             3, 4, 75, m, ksub))
@@ -604,9 +647,9 @@ def phase_kernels(torch, dev, kernels):
         for k in (2, 10):
             adc_ties(b, k)
     log(f"phase 2 adc edge shapes ok (m 4, 6, 8, 16, 32, 160-240; ksub 16, "
-        f"256; B 1, 70, 128; k 1, 100, 256; ragged N and P; dead runs; codes "
-        f"off alignment; int32 codes out of range clamp; ties across tiles and "
-        f"splits; no valid row): max abs err {err}")
+        f"256; B 1, 70, 128; k 1, 100, 256, 257-2048; ragged N and P; dead "
+        f"runs; codes off alignment; int32 codes out of range clamp; ties "
+        f"across tiles and splits; no valid row): max abs err {err}")
     for dtype in (torch.float32, torch.bfloat16):
         for n, d, b, k, vr in ((1000, 64, 1, 10, None),
                                (5000 + 70, 200, 70, 100, None),
@@ -945,30 +988,18 @@ def phase_ivf_pq(torch, kernels):
         raise AssertionError("ivf-pq: filtered search left the filter")
     log("ivf-pq: filter_ids query ok")
 
-    for fn in (adc_probe_scores, adc_topk, l2_topk):
-        fn.launches = 0
     modes = {"ivf_pq": dict(pq=True, fetch=FETCH), "ivf_flat": {}}
     rng = np.random.default_rng(3)
     batches = [queries + 0.01 * rng.standard_normal(queries.shape).astype(
         np.float32) for _ in range(5)]
-    results, qps = {}, {}
-    for name, kw in modes.items():
-        results[name] = ivf.search_batch(queries, N_PROBE, K, **kw)
-        secs = []
-        for i, qb in enumerate(batches):  # 2 warm-ups, 3 timed
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ivf.search_batch(qb, N_PROBE, K, **kw)
-            torch.cuda.synchronize()
-            if i >= 2:
-                secs.append(time.perf_counter() - t0)
-        qps[name] = B / statistics.median(secs)
-        log(f"{name}: QPS {qps[name]:.1f} (B={B}, n_probe={N_PROBE}, k={K}"
-            f"{', fetch=%d' % FETCH if kw else ''}; median of 3 host-clock "
-            "reps)")
-    counts = {"adc_probe": adc_probe_scores.launches,
-              "adc_topk": adc_topk.launches, "l2_topk": l2_topk.launches}
-    log(f"launch counts on the IVF search path: {counts}")
+
+    def probe_call(q, **kw):
+        return ivf.search_batch(q, N_PROBE, K, **kw)
+
+    results, qps, launched = bench_rows(
+        torch, {name: (probe_call, kw) for name, kw in modes.items()},
+        batches, queries, (adc_probe_scores, adc_topk, l2_topk))
+    counts = {"adc_probe": launched["ivf_pq"]["adc_probe_scores"]}
     probe_row_ms = None
     for name, kw in modes.items():
         rows = profile(torch, name, lambda: ivf.search_batch(
@@ -979,8 +1010,9 @@ def phase_ivf_pq(torch, kernels):
         raise AssertionError("adc_probe: no launch on the IVF-PQ path")
     kernels["adc_probe"]["launches"] = counts["adc_probe"]
 
-    _, truth = exact_search_tiled(qd, ivf._emb, ivf._has_emb, K)
-    truth = ivf._store.ids_of(truth.cpu().numpy())
+    _, truth_slots = exact_search_tiled(qd, ivf._emb, ivf._has_emb, K)
+    truth_slots = truth_slots.cpu().numpy()
+    truth = ivf._store.ids_of(truth_slots)
     recalls = {name: recall_at(r[1], truth) for name, r in results.items()}
     log(f"recall@{K} against the port's exact scan: {recalls}")
     for name, (d, ids) in results.items():
@@ -998,6 +1030,8 @@ def phase_ivf_pq(torch, kernels):
     if own[:, 0].tolist() != new_ids:
         raise AssertionError("ivf_pq: an added id is not its own top-1")
     log("ivf_pq: added ids found by self-query; no deleted id returned")
+    ivf_rp_and_scans(torch, kernels, ivf, np.concatenate([x, fresh]),
+                     queries, truth_slots, batches, deleted)
 
     # adc_probe at the main path's shape: one query block as search_batch
     # gathers it (B = 64 queries, P = n_probe * L candidates)
@@ -1067,7 +1101,7 @@ def phase_ivf_pq(torch, kernels):
         f"launches {scan_launches}")
     if scan_launches <= 0:
         raise AssertionError("adc_topk: no launch on the PQCodec path")
-    kernels["adc_topk"]["launches"] = scan_launches
+    kernels["adc_topk"]["launches"] += scan_launches
     kernels["adc_topk"]["max_abs_err"] = max(
         kernels["adc_topk"]["max_abs_err"], e)
     del codec, codes, ivf
@@ -1086,6 +1120,163 @@ def phase_ivf_pq(torch, kernels):
     log(f"IVF-PQ summary: build {build_s:.1f} s, enable_pq {pq_s:.1f} s, "
         f"QPS {qps}, recall@{K} {recalls}, peak device memory {peak} bytes "
         f"({peak / 2**30:.2f} GiB)")
+
+
+def bench_rows(torch, rows, batches, queries, counters=(), warm=2):
+    """The phases' bench method on each row (name -> (call, kwargs)): the
+    answer on ``queries``, then ``warm`` warm-ups and timed calls on the
+    rest of the perturbed ``batches`` (median of the host clock, each call
+    ending in a sync). Each counter (a wrapper with ``launches``) is set to
+    0 just before a row and read just after it. Returns ({row: answer},
+    {row: QPS}, {row: {counter: launches}})."""
+    results, qps, launches = {}, {}, {}
+    for name, (call, kw) in rows.items():
+        for c in counters:
+            c.launches = 0
+        results[name] = call(queries, **kw)
+        secs = []
+        for i, qb in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(qb, **kw)
+            torch.cuda.synchronize()
+            if i >= warm:
+                secs.append(time.perf_counter() - t0)
+        qps[name] = len(queries) / statistics.median(secs)
+        launches[name] = {c.__name__: c.launches for c in counters}
+        log(f"{name}: QPS {qps[name]:.1f} ({kw}; B={len(queries)}, median "
+            f"of {len(secs)} host-clock reps); launches {launches[name]}")
+    return results, qps, launches
+
+
+def ivf_rp_and_scans(torch, kernels, ivf, xs, queries, truth_slots, batches,
+                     deleted):
+    """Phase 4, the residual projection and both full scans on the phase's
+    index: enable_rp, RP at RP_PROBES and over every cell, the residual-PQ
+    full scan (adc_topk with its row and group terms), each against the
+    port's exact scan with its floor; the biased adc_topk against its
+    plain version at the scan's own inputs, its time, bound and lookup
+    floor; the l2_topk calls of the flat RP route (if the residual ratio
+    picked it) against theirs; profiles of the full scans."""
+    from vector_db_tpu_torch.index import ivf as ivf_module
+    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk, adc_topk_plain
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+
+    t0 = time.perf_counter()
+    ivf.enable_rp(dims=RP_DIMS)
+    ivf._rebuild_device_tables()
+    torch.cuda.synchronize()
+    rp_s = time.perf_counter() - t0
+    route = "flat" if ivf._rp_res_ratio > 0.5 else "cell-block scan"
+    log(f"enable_rp(dims={RP_DIMS}) and the RP cell blocks: {rp_s:.1f} s; "
+        f"residual ratio {ivf._rp_res_ratio:.4f}: the full RP scan takes "
+        f"the {route} route")
+    # coarse probe ceilings (scripts/bench_sift.py:140-156): the share of
+    # true neighbours whose cell is among the query's n_probe nearest
+    cell = ivf._slot_cell_table()[truth_slots]
+    cents = ivf.centroids
+    order = np.argsort((cents * cents).sum(-1)[None, :]
+                       - 2.0 * (queries @ cents.T), axis=1)
+    ceil = {p: float(np.mean([np.isin(c, o[:p]).mean()
+                              for c, o in zip(cell, order)]))
+            for p in RP_PROBES}
+    log(f"probe ceilings (spill 1): {ceil}")
+    def call(q, n_probe, **kw):
+        return ivf.search_batch(q, n_probe, K, **kw)
+
+    rows = {f"ivf_rp_{p}": (call, dict(n_probe=p, rp=True, fetch=RP_FETCH))
+            for p in RP_PROBES}
+    rows["ivf_rp_full"] = (call, dict(n_probe=IVF_CELLS, rp=True,
+                                      fetch=RP_FULL_FETCH))
+    rows["ivf_pq_full"] = (call, dict(n_probe=IVF_CELLS, pq=True,
+                                      fetch=PQ_SCAN_FETCH))
+    results, qps, launches = bench_rows(torch, rows, batches, queries,
+                                        (adc_topk, l2_topk))
+    truth = ivf._store.ids_of(truth_slots)
+    recalls = {name: recall_at(r[1], truth) for name, r in results.items()}
+    log(f"recall@{K} against the port's exact scan: {recalls}")
+    for name, (d, ids) in results.items():
+        if ids.shape != (B, K) or (ids < 0).any() or \
+                set(ids.ravel().tolist()) & set(deleted):
+            raise AssertionError(f"{name}: bad ids (pad or deleted id)")
+        # the IVF rerank is the expanded f32 form (the JAX package's
+        # gather_l2_sq): its error is relative to ||q||^2 + ||x||^2
+        rows_x = xs[ids[:8]].astype(np.float64)
+        q64 = queries[:8, None, :].astype(np.float64)
+        d64 = ((rows_x - q64) ** 2).sum(-1)
+        tol = RTOL * ((rows_x ** 2).sum(-1) + (q64 ** 2).sum(-1)) + ATOL
+        if (np.abs(d[:8].astype(np.float64) ** 2 - d64) > tol).any() or \
+                (np.diff(d, axis=1) < 0).any():
+            raise AssertionError(f"{name}: a distance is not the exact L2 "
+                                 "within the f32 expansion's error, or "
+                                 "not ascending")
+    floors = {f"ivf_rp_{p}": ceil[p] - RP_CEIL_SLACK for p in RP_PROBES}
+    floors.update(ivf_rp_full=RP_FULL_FLOOR, ivf_pq_full=PQ_SCAN_FLOOR)
+    for name, floor in floors.items():
+        if recalls[name] < floor:
+            raise AssertionError(f"{name}: recall@{K} {recalls[name]} < "
+                                 f"{floor}")
+    pq_launches = launches["ivf_pq_full"]["adc_topk"]
+    if pq_launches != 1 + len(batches):
+        raise AssertionError(f"ivf_pq_full: adc_topk launched {pq_launches}"
+                             f" times over {1 + len(batches)} calls")
+    kernels["adc_topk"]["launches"] = pq_launches
+    flat_l2 = launches["ivf_rp_full"]["l2_topk"]
+    if route == "flat" and flat_l2 != 1 + len(batches):
+        raise AssertionError(f"ivf_rp_full: l2_topk launched {flat_l2} "
+                             "times on the flat route")
+    kernels["l2_topk_bf16"]["launches"] += flat_l2
+    log(f"floors held: {floors}; distances the exact L2 on 8 queries (within"
+        f" the f32 expansion's error), ascending; launches on "
+        f"the full scans: adc_topk {pq_launches} (one a call), l2_topk "
+        f"bf16 {flat_l2} (the RP {route})")
+    if route == "flat":
+        err = check_l2_calls(torch, log, "ivf_rp_full flat route",
+                             lambda: call(queries, **rows["ivf_rp_full"][1]),
+                             torch.bfloat16)
+        fold_err(kernels, "l2_topk_bf16", err)
+
+    # the biased adc_topk at the PQ scan's own inputs
+    (args, opts), = captured(ivf_module, "adc_topk", lambda: call(
+        queries, **rows["ivf_pq_full"][1]))
+    lut, codes, valid, k = args
+    n_rows, live = codes.shape[0], int(valid.sum())
+    sub = dict(opts, group_bias=opts["group_bias"][:ADC_CHECK_B])
+    lut_s = lut[:ADC_CHECK_B]
+    terms = (lut_s.amax(-1).sum(-1) + opts["row_bias"].abs().max()
+             + sub["group_bias"].abs().amax(-1)).cpu().numpy()
+    e = check_topk("adc_topk biased (PQ scan inputs)",
+                   *adc_topk(lut_s, codes, valid, k, **sub),
+                   *adc_topk_plain(lut_s, codes, valid, k + 1, **sub),
+                   group=k, scale=terms)
+    fold_err(kernels, "adc_topk", e)
+    ms = cuda_ms(torch, lambda: adc_topk(lut, codes, valid, k, **opts))
+    sub_ms = cuda_ms(torch, lambda: adc_topk(lut_s, codes, valid, k, **sub))
+    sub_plain_ms = cuda_ms(torch, lambda: adc_topk_plain(
+        lut_s, codes, valid, k, **sub), reps=1)
+    b, m, ksub = lut.shape
+    groups = opts["group_bias"].shape[1]
+    nbytes = (live * m + n_rows + n_rows * 4 + b * groups * 4
+              + b * m * ksub * 4 + b * k * 8)
+    bnd_ms, bnd_by = bound(nbytes, float(b) * live * (m + 2), F32_FLOPS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor_ms = float(b) * n_rows * m / (32.0 * sms * BOOST_MHZ * 1e6) * 1e3
+    log(f"adc_topk with row and group terms at the PQ scan's shape (B={b}, "
+        f"N={n_rows} padded slots of {groups} cells, {live} live, m={m}, "
+        f"ksub={ksub}, k={k}): kernel {ms:.3f} ms a call, {pq_launches} "
+        f"launches; bound {bnd_ms:.4f} ms ({bnd_by}: the live rows' codes, "
+        f"the mask, terms and LUTs once, one add a live (query, row, "
+        f"subspace)); lookup floor {floor_ms:.4f} ms ({b * n_rows * m:.3g} "
+        f"lookups: the kernel looks up padded slots too), kernel at "
+        f"{ms / floor_ms:.2f}x the floor; on {ADC_CHECK_B} queries kernel "
+        f"{sub_ms:.3f} ms, plain {sub_plain_ms:.1f} ms, max abs err {e}")
+    pq_rows = profile(torch, "ivf_pq_full", lambda: call(
+        batches[0], **rows["ivf_pq_full"][1]))
+    profile(torch, "ivf_rp_full", lambda: call(batches[0],
+                                               **rows["ivf_rp_full"][1]))
+    log(f"IVF RP / full-scan summary: enable_rp {rp_s:.1f} s, QPS {qps}, "
+        f"recall@{K} {recalls}, profiler adc_scan_kernel "
+        f"{kernel_row_ms(pq_rows, 'adc_scan_kernel')} ms a launch")
 
 
 def profile(torch, label, fn, reps: int = 3):
@@ -1320,6 +1511,16 @@ def hnsw_persist(torch, idx, x, queries):
         if not np.array_equal(got, want):
             raise AssertionError(f"reload: {int((got != want).sum())} ids "
                                  "differ on the queries")
+        # the trained PQ and RP state came back with it (codes re-encoded)
+        qp = queries[:PERSIST_Q]
+        for mode in ("pq", "rp"):
+            call = f"search_batch_{mode}"
+            want = getattr(idx, call)(qp, K, ef=CLASSIC_EF, expand=4)[1]
+            got = getattr(again, call)(qp, K, ef=CLASSIC_EF, expand=4)[1]
+            if not np.array_equal(got, want):
+                raise AssertionError(f"reload: {call} ids differ on "
+                                     f"{int((got != want).any(1).sum())} "
+                                     "queries")
         storage.close()
         del again
     idx.index_file = None
@@ -1328,8 +1529,124 @@ def hnsw_persist(torch, idx, x, queries):
         f"chunks of 65536 in {fill_s:.1f} s; load (HNSW(index_file=...): "
         f"npz, hydration from storage, recover_unlinked) {load_s:.2f} s; "
         f"tables, id map and levels bit-equal; classic ids equal on {B} "
-        "queries")
+        f"queries, search_batch_pq and search_batch_rp ids on {PERSIST_Q} "
+        "(the codebooks, OPQ rotation and projection reloaded)")
     return nbytes, save_s, fill_s, load_s
+
+
+def hnsw_modes(torch, kernels, idx, x, queries, truth, batches, deleted):
+    """Phase 5's PQ and RP traversals, the PQ-scored wide beam, and the
+    inline tables with the pool-free beam and the inline wide beam, each
+    against the port's exact scan with its floor, distances exact on 8
+    queries; sorted_topk launches counted per row, and the kernel held
+    against its plain version on the PQ-scored merge's own input. Returns
+    the summary."""
+    from vector_db_tpu_torch.index import wide_beam
+    from vector_db_tpu_torch.ops.cuda.sorted_topk import (
+        sorted_topk, sorted_topk_plain)
+
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    idx.enable_rp(dims=RP_DIMS)
+    idx._rp_tables()
+    torch.cuda.synchronize()
+    times["enable_rp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.enable_pq(chunks=PQ_M, ksub=PQ_KSUB, opq_iters=HNSW_OPQ_ITERS)
+    torch.cuda.synchronize()
+    times["enable_pq"] = time.perf_counter() - t0
+    log(f"enable_rp(dims={RP_DIMS}) and its mirror {times['enable_rp']:.1f}"
+        f" s; enable_pq(chunks={PQ_M}, ksub={PQ_KSUB}, opq_iters="
+        f"{HNSW_OPQ_ITERS}) {times['enable_pq']:.1f} s")
+    wide = dict(k=K, dedup_window=16, seen_mask=False, merge_kernel=True)
+    rows = {f"rp_{ef}": (idx.search_batch_rp, dict(k=K, ef=ef, expand=4))
+            for ef in HNSW_RP_EFS}
+    rows[f"pq_{HNSW_PQ_EF}"] = (idx.search_batch_pq,
+                                dict(k=K, ef=HNSW_PQ_EF, expand=4))
+    # classic PQ / RP: 1 warm-up, 4 timed reps (host-bound, 0.2-0.4 s a
+    # call)
+    res, qps, launches = bench_rows(torch, rows, batches, queries,
+                                    (sorted_topk,), warm=1)
+    floors = {f"rp_{ef}": f for ef, f in HNSW_RP_EFS.items()}
+    floors[f"pq_{HNSW_PQ_EF}"] = HNSW_PQ_FLOOR
+    rows = {"wide_pq": (idx.search_batch_wide,
+                        dict(k=K, score="pq", merge_kernel=True, **WIDE_PQ))}
+    r2, q2, l2 = bench_rows(torch, rows, batches, queries, (sorted_topk,))
+    # sorted_topk on the PQ-scored merge's own input (a wider pool than
+    # the exact route's, keys from the PQ-decoded mirror); these launches
+    # only compare, and count nowhere
+    seen = captured(wide_beam, "sorted_topk", lambda: idx.search_batch_wide(
+        queries, k=K, score="pq", merge_kernel=True, **WIDE_PQ))
+    (d, v, topk), kw = seen[WIDE_PQ["steps"] // 2]
+    e = check_sorted("sorted_topk wide_pq", sorted_topk(d, v, topk, **kw),
+                     sorted_topk_plain(d, v, min(topk + 1, d.shape[1])))
+    fold_err(kernels, "sorted_topk", e)
+    log(f"sorted_topk {d.dtype} keys [{d.shape[0]}, {d.shape[1]}] -> topk="
+        f"{topk} {kw} (wide_pq's merge input of step {WIDE_PQ['steps'] // 2}"
+        f"): keys equal the plain version's, payloads equal within runs of "
+        f"equal keys, max abs err {e}")
+    t0 = time.perf_counter()
+    idx.enable_wide(dims=INLINE_DIMS, seeds=WIDE_SEEDS, inline=True)
+    idx._wide_tables()
+    torch.cuda.synchronize()
+    times["enable_wide_inline"] = time.perf_counter() - t0
+    tabs = idx._wb[3]
+    inline_bytes = sum(a.numel() * a.element_size() for a in tabs)
+    log(f"enable_wide(dims={INLINE_DIMS}, seeds={WIDE_SEEDS}, inline=True) "
+        f"with its tables: {times['enable_wide_inline']:.1f} s; inline "
+        f"tables {inline_bytes} bytes ({inline_bytes / 2**30:.2f} GiB)")
+    rows = {f"beam_{f}": (idx.search_batch_beam,
+                          dict(k=K, frontier=f, steps=BEAM_T,
+                               hist=BEAM_HIST)) for f in BEAM_FLOORS}
+    rows["wide_inline"] = (idx.search_batch_wide,
+                           dict(wide, ef=WIDE_EF, frontier=WIDE_F,
+                                steps=WIDE_T))
+    r3, q3, l3 = bench_rows(torch, rows, batches, queries, (sorted_topk,))
+    for got, more in ((res, (r2, r3)), (qps, (q2, q3)),
+                      (launches, (l2, l3))):
+        for m in more:
+            got.update(m)
+    floors.update(wide_pq=WIDE_PQ_FLOOR, wide_inline=WIDE_FLOOR,
+                  **{f"beam_{f}": v for f, v in BEAM_FLOORS.items()})
+    peak = torch.cuda.max_memory_allocated()
+    recalls = {name: recall_at(r[1], truth) for name, r in res.items()}
+    log(f"recall@{K} against the port's exact scan: {recalls}; floors "
+        f"{floors}; peak device memory of these modes {peak} bytes "
+        f"({peak / 2**30:.2f} GiB, the inline tables included)")
+    for name, (d, ids) in res.items():
+        if ids.shape != (B, K) or (ids < 0).any() or \
+                set(ids.ravel().tolist()) & set(deleted):
+            raise AssertionError(f"{name}: bad ids (pad or deleted id)")
+        exact_distances(name, x, queries[:8], d[:8], ids[:8])
+        if recalls[name] < floors[name]:
+            raise AssertionError(f"{name}: recall@{K} {recalls[name]} < "
+                                 f"{floors[name]}")
+    calls = 1 + len(batches)
+    for name in ("wide_pq", "wide_inline"):
+        if launches[name]["sorted_topk"] != WIDE_T * calls:
+            raise AssertionError(f"{name}: sorted_topk launched "
+                                 f"{launches[name]['sorted_topk']} times, "
+                                 f"not {WIDE_T} a call")
+    if any(launches[n]["sorted_topk"] for n in launches
+           if not n.startswith("wide")):
+        raise AssertionError("sorted_topk launched outside the wide rows")
+    kernels["sorted_topk"]["launches"] += (launches["wide_pq"]["sorted_topk"]
+                                           + launches["wide_inline"][
+                                               "sorted_topk"])
+    log("floors held; distances exact and ascending on 8 queries a row; "
+        f"sorted_topk {WIDE_T} launches a call on the wide rows, none on "
+        "the classic and beam rows")
+    for name, call, kw, reps in (
+            ("beam_224", idx.search_batch_beam,
+             dict(k=K, frontier=224, steps=BEAM_T, hist=BEAM_HIST), 3),
+            ("wide_pq", idx.search_batch_wide,
+             dict(k=K, score="pq", merge_kernel=True, **WIDE_PQ), 3),
+            (f"pq_{HNSW_PQ_EF}", idx.search_batch_pq,
+             dict(k=K, ef=HNSW_PQ_EF, expand=4), 1)):
+        profile(torch, name, lambda: call(batches[0], **kw), reps=reps)
+    return {"seconds": times, "qps": qps, "recall": recalls,
+            "peak": peak, "inline_bytes": inline_bytes}
 
 
 def phase_hnsw(torch, kernels):
@@ -1404,23 +1721,12 @@ def phase_hnsw(torch, kernels):
     rng = np.random.default_rng(5)
     batches = [queries + 0.01 * rng.standard_normal(queries.shape).astype(
         np.float32) for _ in range(5)]
-    results, qps, launches = {}, {}, {}
-    for name, kw in modes.items():
-        call = idx.search_batch if name == "classic" else idx.search_batch_wide
-        before = sorted_topk.launches
-        results[name] = call(queries, **kw)
-        secs = []
-        for i, qb in enumerate(batches):  # 2 warm-ups, 3 timed
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            call(qb, **kw)
-            torch.cuda.synchronize()
-            if i >= 2:
-                secs.append(time.perf_counter() - t0)
-        qps[name] = B / statistics.median(secs)
-        launches[name] = sorted_topk.launches - before
-        log(f"{name}: QPS {qps[name]:.1f} (B={B}, {kw}; median of 3 "
-            "host-clock reps)")
+    results, qps, launched = bench_rows(
+        torch, {name: (idx.search_batch if name == "classic"
+                       else idx.search_batch_wide, kw)
+                for name, kw in modes.items()},
+        batches, queries, (sorted_topk,))
+    launches = {name: c["sorted_topk"] for name, c in launched.items()}
     calls = 1 + len(batches)
     log(f"sorted_topk launches per mode: {launches} over {calls} calls each")
     sorted_row_ms = None
@@ -1512,6 +1818,8 @@ def phase_hnsw(torch, kernels):
         f" ms; keys equal, payloads equal within runs of equal keys; "
         f"profiler sorted_topk_kernel {sorted_row_ms} ms a launch in the "
         f"wide_merge_kernel profile (all steps' shapes)")
+    more = hnsw_modes(torch, kernels, idx, x, queries, truth, batches,
+                      deleted)
     nbytes, save_s, fill_s, load_s = hnsw_persist(torch, idx, x, queries)
     log(f"HNSW summary: build {build_s:.1f} s ({n_build} rows), inserts "
         f"{insert_rate:.1f}/s (first batch {first_batch_s * 1e3:.1f} ms, "
@@ -1520,7 +1828,8 @@ def phase_hnsw(torch, kernels):
         f"without an in-edge, own top-1 {own_top1:.4f}, QPS {qps}, recall@{K} "
         f"{recalls}, filtered recall {frec:.4f}, peak device memory of the "
         f"searches {peak} bytes ({peak / 2**30:.2f} GiB); save {save_s:.2f} s "
-        f"({nbytes} bytes), storage fill {fill_s:.1f} s, load {load_s:.2f} s")
+        f"({nbytes} bytes), storage fill {fill_s:.1f} s, load {load_s:.2f} s;"
+        f" PQ / RP / beam modes {more}")
 
 
 def svc_config(path, file_path, **index) -> str:
@@ -1567,16 +1876,17 @@ def uncounted():
     call, a kernel against its plain version), not the path's: every
     kernel count of phase 6 is put back on exit."""
     from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
+    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
     from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
 
     saved = (l2_topk.launches, l2_topk.launches_bf16, sorted_topk.launches,
-             adc_probe_scores.launches)
+             adc_probe_scores.launches, adc_topk.launches)
     try:
         yield
     finally:
         (l2_topk.launches, l2_topk.launches_bf16, sorted_topk.launches,
-         adc_probe_scores.launches) = saved
+         adc_probe_scores.launches, adc_topk.launches) = saved
 
 
 def captured(module, name, call):
@@ -1969,6 +2279,183 @@ def svc_small_types(torch, say, tmp, x, queries):
             f"recall@{K} {out[kind]['recall']:.4f} against the flat "
             f"service; equal to the direct index call; launches l2_topk f32 "
             f"{launched[0]}, adc_probe {launched[1]}")
+        if kind == "ivf":
+            out["ivf_full"] = svc_ivf_full_scan(torch, say, svc, queries,
+                                                flat_ids)
+        del svc
+    out["rp"] = svc_ivf_rp(torch, say, tmp, nodes, queries, flat_ids)
+    out["hnsw"] = svc_hnsw_modes(torch, say, tmp, nodes, queries, flat_ids)
+    return out
+
+
+def svc_ivf_full_scan(torch, say, svc, queries, flat_ids):
+    """Step e, the IVF-PQ service at n_probe = ivf_k: the full-scan
+    IVF-PQ route (adc_topk with its row and group terms), equal to the
+    direct index call; its adc_topk calls held against the plain version
+    on ADC_CHECK_B queries, uncounted. Returns its numbers."""
+    from vector_db_tpu_torch.index import ivf as ivf_index
+    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk, adc_topk_plain
+
+    before = adc_topk.launches
+    got = svc.search_batch(queries, K, n_probe=SVC_IVF_K)
+    launched = adc_topk.launches - before
+    err = 0.0
+    with uncounted():
+        want = svc.index.search_batch(queries, n_probe=SVC_IVF_K, top_k=K,
+                                      filter_ids=None, pq=True, rp=False,
+                                      adc="pallas")
+        calls = captured(ivf_index, "adc_topk", lambda: svc.search_batch(
+            queries, K, n_probe=SVC_IVF_K))
+        for (lut, codes, valid, k), opts in calls:
+            sub = dict(opts, group_bias=opts["group_bias"][:ADC_CHECK_B])
+            ls = lut[:ADC_CHECK_B]
+            err = max(err, check_topk(
+                "ivf service full scan: adc_topk", *adc_topk(
+                    ls, codes, valid, k, **sub),
+                *adc_topk_plain(ls, codes, valid, k + 1, **sub), group=k,
+                scale=(ls.amax(-1).sum(-1) + opts["row_bias"].abs().max()
+                       + sub["group_bias"].abs().amax(-1)).cpu().numpy()))
+    same_answer("ivf service full scan", got, want)
+    if launched != 1:
+        raise AssertionError(f"ivf full scan: adc_topk launched {launched} "
+                             "times, not once")
+    out = {"qps": median_qps(torch, lambda q: svc.search_batch(
+        q, K, n_probe=SVC_IVF_K), [queries] * 5),
+           "recall": recall_at(got[1], flat_ids), "adc_topk": launched,
+           "adc_err": err}
+    say(f"ivf service at n_probe = ivf_k = {SVC_IVF_K} (the full-scan "
+        f"IVF-PQ): QPS {out['qps']:.1f}, recall@{K} {out['recall']:.4f} "
+        f"against the flat service, equal to the direct index call; "
+        f"adc_topk launched {launched} time(s), against adc_topk_plain on "
+        f"{ADC_CHECK_B} queries (N = {codes.shape[0]} slots, group "
+        f"{opts['group']}): max abs err {err}")
+    return out
+
+
+def svc_ivf_rp(torch, say, tmp, nodes, queries, flat_ids):
+    """Step e, an IVF service with index.rp {dims 128}: n_probe 10 (the
+    probe) and n_probe = ivf_k (the full scan, on the route the residual
+    ratio picks), each equal to the direct index call; where it is the
+    flat route, its l2_topk bf16 calls held against the plain version,
+    uncounted. Returns its numbers."""
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.services.indexing_service import IndexingService
+    from vector_db_tpu_torch.storage import InMemoryNodeStorage
+
+    cfg = svc_config(tmp / "ivf_rp.yaml", tmp / "ivf_rp", type="ivf",
+                     ivf_k=SVC_IVF_K, rp={"dims": RP_DIMS,
+                                          "min_size": SVC_MIN_SIZE})
+    svc = IndexingService(storage=InMemoryNodeStorage(), config_path=cfg,
+                          index_file=str(tmp / "ivf_rp.npz"))
+    t0 = time.perf_counter()
+    svc.insert_nodes(nodes)
+    svc.search_batch(queries[:8], K)             # activates RP
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    if not svc._rp_active:
+        raise AssertionError("ivf rp: RP did not activate")
+    ratio = svc.index._rp_res_ratio
+    route = "flat" if ratio > 0.5 else "cell-block scan"
+    out = {"ingest_s": ingest_s, "ratio": ratio, "route": route}
+    for n_probe in (10, SVC_IVF_K):
+        before = l2_topk.launches_bf16
+        got = svc.search_batch(queries, K, n_probe=n_probe)
+        launched = l2_topk.launches_bf16 - before
+        with uncounted():
+            want = svc.index.search_batch(queries, n_probe=n_probe, top_k=K,
+                                          filter_ids=None, pq=False, rp=True,
+                                          adc="pallas")
+        same_answer(f"ivf rp service n_probe {n_probe}", got, want)
+        out[n_probe] = {"qps": median_qps(torch, lambda q: svc.search_batch(
+            q, K, n_probe=n_probe), [queries] * 5),
+            "recall": recall_at(got[1], flat_ids), "l2_topk_bf16": launched}
+    full = out[SVC_IVF_K]
+    if route == "flat":
+        if full["l2_topk_bf16"] != 1:
+            raise AssertionError("ivf rp flat route: l2_topk bf16 launched "
+                                 f"{full['l2_topk_bf16']} times")
+        with uncounted():
+            out["l2_err"] = check_l2_calls(
+                torch, say, "ivf rp service, flat route",
+                lambda: svc.search_batch(queries, K, n_probe=SVC_IVF_K),
+                torch.bfloat16)
+    say(f"ivf rp service at {SVC_SMALL_N} x {SVC_DIM} (index.rp dims "
+        f"{RP_DIMS}): ingest and enable_rp {ingest_s:.2f} s; residual ratio "
+        f"{ratio:.4f}, so the full scan takes the {route} route; n_probe 10 "
+        f"QPS {out[10]['qps']:.1f} recall@{K} {out[10]['recall']:.4f}; "
+        f"n_probe {SVC_IVF_K} QPS {full['qps']:.1f} recall@{K} "
+        f"{full['recall']:.4f} (l2_topk bf16 launches {full['l2_topk_bf16']}"
+        f"); each equal to the direct index call")
+    del svc
+    return out
+
+
+def svc_hnsw_modes(torch, say, tmp, nodes, queries, flat_ids):
+    """Step e, HNSW services at SVC_SMALL_N rows with index.rp, then
+    index.pq, then index.wide.mode: beam; single queries (the rp and pq
+    routes are the JAX service's single-query routes) and a batch (beam),
+    each equal to the direct index call. Returns their numbers."""
+    from vector_db_tpu_torch.services.indexing_service import IndexingService
+    from vector_db_tpu_torch.storage import InMemoryNodeStorage
+
+    out = {}
+    configs = {
+        "rp": dict(rp={"dims": RP_DIMS, "min_size": SVC_MIN_SIZE}),
+        "pq": dict(pq={"chunks": SVC_PQ_M, "min_size": SVC_MIN_SIZE}),
+        "beam": dict(wide={"enabled": True, "dims": INLINE_DIMS,
+                           "seeds": 4096, "mode": "beam",
+                           "min_size": SVC_MIN_SIZE})}
+    for mode, extra in configs.items():
+        cfg = svc_config(tmp / f"hnsw_{mode}.yaml", tmp / f"hnsw_{mode}",
+                         type="hnsw", **extra)
+        svc = IndexingService(storage=InMemoryNodeStorage(), config_path=cfg,
+                              index_file=str(tmp / f"hnsw_{mode}.npz"))
+        t0 = time.perf_counter()
+        svc.insert_nodes(nodes)
+        svc.search(queries[0], k=K)                # activates the mode
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        idx = svc.index
+        if mode == "beam":
+            got = svc.search_batch(queries, K)
+            with uncounted():
+                want = idx.search_batch_beam(queries, K, frontier=224,
+                                             steps=12, hist=2)
+            same_answer("hnsw beam service", got, want)
+            ids = got[1]
+            qps = median_qps(torch, lambda q: svc.search_batch(q, K),
+                             [queries] * 5)
+        else:
+            call = getattr(idx, f"search_batch_{mode}")
+            rows, secs = [], []
+            for i, q in enumerate(queries[:SVC_CHECKED * 5]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hits = svc.search(q, k=K)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                rows.append([n.id for n, _ in hits])
+                if i < SVC_CHECKED:
+                    with uncounted():
+                        d, w = call(q[None, :], K, ef=50, expand=4)
+                    if [n.id for n, _ in hits] != [int(v) for v in w[0]
+                                                   if v >= 0] or not \
+                            np.allclose([dd for _, dd in hits],
+                                        d[0][:len(hits)], rtol=1e-6):
+                        raise AssertionError(f"hnsw {mode} service: the "
+                                             "answer differs from the direct "
+                                             "index call")
+            ids = np.array([r + [-1] * (K - len(r)) for r in rows])
+            qps = 1.0 / statistics.median(secs)
+        n_q = len(ids)
+        out[mode] = {"ingest_s": ingest_s, "qps": qps,
+                     "recall": recall_at(ids, flat_ids[:n_q])}
+        say(f"hnsw {mode} service at {SVC_SMALL_N} x {SVC_DIM}: ingest and "
+            f"activation {ingest_s:.2f} s; "
+            + (f"B = {n_q} QPS {qps:.1f}" if mode == "beam" else
+               f"{n_q} single queries, {qps:.1f} a second (median)")
+            + f"; recall@{K} {out[mode]['recall']:.4f} against the flat "
+            "service; equal to the direct index call")
         del svc
     return out
 
@@ -2188,6 +2675,8 @@ def phase_services(torch, kernels, card):
             e = svc_small_types(torch, say, tmp, x, queries)
             fold_err(kernels, "adc_probe", e["adc_err"])
             fold_err(kernels, "l2_topk", e["l2_err"])
+            fold_err(kernels, "adc_topk", e["ivf_full"]["adc_err"])
+            fold_err(kernels, "l2_topk_bf16", e["rp"].get("l2_err", 0.0))
             if e["ivf"]["adc_probe"] <= 0:
                 raise AssertionError("adc_probe: no launch on the IVF route")
             f = svc_http(torch, say, cfg, storage, svc,

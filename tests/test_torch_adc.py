@@ -170,3 +170,85 @@ def test_out_of_range_codes_clamp_like_the_uint8_table(ksub):
         n(adc_probe_plain(lut, t(wide), t(corr), t(ok))),
         n(adc_probe_plain(lut, t(np.minimum(wide, ksub - 1)), t(corr),
                           t(ok))))
+
+
+def _bias_case(seed, b, cells, width, m, ksub):
+    """The full-scan IVF-PQ's inputs, cell-blocked: codes of `cells`
+    padded cells of `width` slots, a live prefix of each, a per-row scalar
+    and a per-(query, cell) term."""
+    rng = np.random.default_rng(seed)
+    lut = _lut(rng, b, m, ksub)
+    codes = rng.integers(0, ksub, (cells * width, m)).astype(np.uint8)
+    live = rng.integers(0, width + 1, (cells, 1))
+    valid = (np.arange(width)[None] < live).reshape(-1)
+    row = rng.standard_normal(cells * width).astype(np.float32)
+    grp = (3.0 * rng.standard_normal((b, cells))).astype(np.float32)
+    return lut, codes, valid, row, grp
+
+
+@pytest.mark.parametrize("terms", ["both", "row", "group"])
+def test_adc_topk_plain_biases_match_float64(terms):
+    """A row's value is the LUT sum + row_bias[n] + group_bias[b, n //
+    group]; the plain version against a float64 oracle (rtol = atol =
+    1e-5), the wrapper on CPU tensors taking it."""
+    lut, codes, valid, row, grp = _bias_case(1, 4, 13, 37, 8, 64)
+    rb = t(row) if terms != "group" else None
+    gb = t(grp) if terms != "row" else None
+    got = adc_topk(t(lut), t(codes), t(valid), 40, row_bias=rb,
+                   group_bias=gb, group=37)
+    d64 = _scan_oracle(lut, codes.astype(np.int64), valid, 40)
+    if rb is not None:
+        d64 = d64 + row.astype(np.float64)[None]
+    if gb is not None:
+        d64 = d64 + np.repeat(grp.astype(np.float64), 37, axis=1)
+    np.testing.assert_allclose(n(got[0]), np.sort(d64, axis=1)[:, :40],
+                               rtol=1e-5, atol=1e-5)
+    picked = np.take_along_axis(d64, n(got[1]).astype(np.int64), axis=1)
+    np.testing.assert_allclose(picked, n(got[0]), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="group_bias"):
+        adc_topk(t(lut), t(codes), t(valid), 5, group_bias=t(grp), group=36)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+def test_adc_topk_plain_biases_match_jax_pq_scan(residual):
+    """adc_topk_plain with the row and group terms, fed what the port's
+    full-scan IVF-PQ feeds it, against the JAX package's
+    ``_ivf_pq_scan_cells(rerank=False)`` (its one-hot hi/lo bf16 LUT
+    contraction) on the same cell blocks: values within 2^-16 of the LUT
+    sum's size (plus 1e-4), ids equal where values are apart."""
+    from vector_db_tpu.index.ivf import _ivf_pq_scan_cells
+    from vector_db_tpu.index.pq import _adc_lut as jax_lut
+
+    rng = np.random.default_rng(2)
+    k_cells, width, m, ksub, sub, b = 8, 29, 4, 32, 6, 5
+    dim = m * sub
+    cents = rng.standard_normal((k_cells, dim)).astype(np.float32)
+    cb = rng.standard_normal((m, ksub, sub)).astype(np.float32)
+    cap = k_cells * width
+    slots = np.arange(cap, dtype=np.int32).reshape(k_cells, width)
+    slots[:, 20:] = -1
+    codes = rng.integers(0, ksub, (k_cells, width, m)).astype(np.uint8)
+    cell_s = rng.standard_normal((k_cells, width)).astype(np.float32)
+    emb = rng.standard_normal((cap, dim)).astype(np.float32)
+    has = rng.random(cap) > 0.1
+    q = rng.standard_normal((b, dim)).astype(np.float32)
+    want = _ivf_pq_scan_cells(
+        jnp.asarray(cents), jnp.asarray(slots), jnp.asarray(codes),
+        jnp.asarray(cell_s), jnp.asarray(cb), jnp.asarray(emb),
+        jnp.asarray(has), jnp.asarray(q), jnp.asarray(q), top_k=31,
+        fetch=31, rerank=False, residual=residual, dedup=False, ctile=2,
+        qblock=8)
+    lut = np.asarray(jax_lut(jnp.asarray(q), jnp.asarray(cb)))
+    flat = slots.reshape(-1)
+    valid = (flat >= 0) & has[np.maximum(flat, 0)]
+    corr = None
+    if residual:
+        cd = ((q[:, None] - cents[None]) ** 2).sum(-1)
+        corr = t((cd - (q * q).sum(-1)[:, None]).astype(np.float32))
+    d, pos = adc_topk_plain(t(lut), t(codes.reshape(-1, m)), t(valid), 30,
+                            row_bias=t(cell_s.reshape(-1)),
+                            group_bias=corr, group=width)
+    ids = np.where(n(pos) >= 0, flat[np.maximum(n(pos), 0)], -1)
+    size = np.abs(np.asarray(want[0])).max()
+    assert_topk_parity(n(d), ids, want[0], want[1], rtol=2.0 ** -16,
+                       atol=1e-4, scale=size, extra=1)

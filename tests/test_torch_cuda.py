@@ -376,6 +376,120 @@ def test_adc_topk_unaligned_uint8_codes(cuda):
                        atol=0)
 
 
+def _bias_inputs(rng, b, nrows, m, group, dev):
+    """adc_topk inputs as the full-scan IVF-PQ gives them: codes of padded
+    cells of ``group`` slots, a live prefix of each cell, a per-row scalar
+    and a per-(query, cell) term of mixed sign."""
+    lut = _adc_lut(rng, b, m, 256, dev)
+    codes = torch.from_numpy(rng.integers(0, 256, (nrows, m)).astype(
+        np.uint8)).to(dev)
+    cells = -(-nrows // group)
+    live = rng.integers(0, group + 1, (cells, 1))
+    valid = (np.arange(group)[None] < live).reshape(-1)[:nrows]
+    row_bias = _tensor(rng, (nrows,), dev)
+    group_bias = 4.0 * _tensor(rng, (b, cells), dev)
+    return lut, codes, torch.from_numpy(valid).to(dev), row_bias, group_bias
+
+
+@pytest.mark.parametrize("terms", ["both", "group", "row"])
+@pytest.mark.parametrize("b,nrows,group,k", [
+    (5, 3000, 3000, 10),        # one group
+    (70, 20000 + 3, 489, 128),  # groups straddling the 512-row tiles
+    (128, 1 << 16, 256, 256),   # groups on tile edges, B a multiple of 8
+    (3, 7000, 1, 20)])          # a group a row
+def test_adc_topk_biased_matches_plain(cuda, terms, b, nrows, group, k):
+    rng = np.random.default_rng(b + nrows + group)
+    lut, codes, valid, rb, gb = _bias_inputs(rng, b, nrows, 16, group, cuda)
+    rb = rb if terms in ("both", "row") else None
+    gb = gb if terms in ("both", "group") else None
+    before = adc_topk.launches
+    got = adc_topk(lut, codes, valid, k, row_bias=rb, group_bias=gb,
+                   group=group)
+    torch.cuda.synchronize()
+    assert adc_topk.launches == before + 1
+    want = adc_topk_plain(lut, codes, valid, k + 1, row_bias=rb,
+                          group_bias=gb, group=group)
+    scale = lut.amax(-1).sum(-1) + (0 if rb is None else rb.abs().max()) + (
+        0 if gb is None else gb.abs().amax(-1))
+    assert_topk_parity(*got, *want, rtol=1e-5, atol=1e-4, scale=scale,
+                       extra=1)
+
+
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("b,nrows,k", [
+    (1, 30000 + 11, 257),       # one past the lists of l2_topk
+    (9, 30000 + 11, 512),       # a CTA of 4 queries (m = 16, ksub = 256)
+    (130, 1 << 16, 1024),
+    (70, 20000 + 3, 2048),      # the longest list: 2 queries a CTA
+    (5, 1500, 2048)])           # k above the valid rows
+def test_adc_topk_long_lists_match_plain(cuda, biased, b, nrows, k):
+    """k past 256: fewer queries a CTA, longer bitonic merges; the full
+    scan's fetch of a top_k above 64 runs here."""
+    rng = np.random.default_rng(b + k)
+    lut, codes, valid, rb, gb = _bias_inputs(rng, b, nrows, 16, 489, cuda)
+    kw = (dict(row_bias=rb, group_bias=gb, group=489) if biased else {})
+    before = adc_topk.launches
+    got = adc_topk(lut, codes, valid, k, **kw)
+    torch.cuda.synchronize()
+    assert adc_topk.launches == before + 1
+    want = adc_topk_plain(lut, codes, valid, k + 1, **kw)
+    scale = lut.amax(-1).sum(-1) + (
+        rb.abs().max() + gb.abs().amax(-1) if biased else 0)
+    assert_topk_parity(*got, *want, rtol=1e-5, atol=1e-4, scale=scale,
+                       extra=1)
+
+
+def test_adc_topk_lists_past_shared_memory_raise(cuda):
+    """m = 200, ksub = 256 holds one query's LUT at k = 256, not beside
+    a list of 2048; and no list is longer than 2048."""
+    rng = np.random.default_rng(3)
+    lut = _adc_lut(rng, 2, 200, 256, cuda)
+    codes = torch.zeros((100, 200), dtype=torch.uint8, device=cuda)
+    valid = torch.ones(100, dtype=torch.bool, device=cuda)
+    adc_topk(lut, codes, valid, 256)
+    with pytest.raises(ValueError, match="do not fit"):
+        adc_topk(lut, codes, valid, 2048)
+    with pytest.raises(ValueError, match="2048"):
+        adc_topk(lut, codes, valid, 2049)
+
+
+def test_ivf_full_scans_bound_fetch_on_cuda(cuda):
+    """On the card each full scan runs its kernel: a fetch past its lists
+    raises (adc_topk 2048, the flat RP route's l2_topk 256), one within
+    them launches the kernel."""
+    from vector_db_tpu_torch.index.ivf import IvfIndex
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((3000, 32)).astype(np.float32)
+    q = rng.standard_normal((4, 32)).astype(np.float32)
+    ivf = IvfIndex(k=4, device=cuda)
+    ivf.build_arrays(range(3000), x, seed=0, iters=5)
+    ivf.enable_pq(chunks=8, ksub=16)
+    ivf.enable_rp(dims=16)
+    ivf._rp_res_ratio = 1.0            # the flat RP route
+    before = adc_topk.launches
+    ivf.search_batch(q, n_probe=4, top_k=10, pq=True, fetch=2048)
+    assert adc_topk.launches == before + 1
+    with pytest.raises(ValueError, match="adc_topk"):
+        ivf.search_batch(q, n_probe=4, top_k=10, pq=True, fetch=2049)
+    before = l2_topk.launches_bf16
+    ivf.search_batch(q, n_probe=4, top_k=10, rp=True, fetch=256)
+    assert l2_topk.launches_bf16 > before
+    with pytest.raises(ValueError, match="l2_topk"):
+        ivf.search_batch(q, n_probe=4, top_k=10, rp=True, fetch=257)
+
+
+def test_adc_topk_zero_biases_equal_unbiased(cuda):
+    """Zero terms leave every value and id as the unbiased scan gives it;
+    int32 codes (the narrowing pass) take the terms too."""
+    rng = np.random.default_rng(21)
+    lut, codes, valid, rb, gb = _bias_inputs(rng, 33, 9000, 16, 300, cuda)
+    plain = adc_topk(lut, codes, valid, 64)
+    got = adc_topk(lut, codes.int(), valid, 64, row_bias=torch.zeros_like(rb),
+                   group_bias=torch.zeros_like(gb), group=300)
+    assert_topk_parity(*got, *plain, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("m", [4, 6, 8, 16, 32])
 def test_adc_probe_kernel_dead_runs(cuda, m, aligned):

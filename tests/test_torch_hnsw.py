@@ -293,27 +293,6 @@ def test_insert_nodes_bulk_builds_an_empty_index_and_search_returns_nodes():
     assert 105 not in idx.search_batch(x[5:6], 3, ef=32)[1]
 
 
-@pytest.mark.parametrize("call", [
-    lambda i: i.enable_pq(), lambda i: i.enable_rp(),
-    lambda i: i.search_batch_pq(np.zeros((1, 8)), 3),
-    lambda i: i.search_batch_rp(np.zeros((1, 8)), 3),
-    lambda i: i.search_batch_beam(np.zeros((1, 8)), 3),
-    lambda i: (i.enable_wide(dims=None, seeds=8),
-               i.search_batch_wide(np.zeros((1, 8), np.float32), 3,
-                                   score="rp")),
-    lambda i: i.refresh_pq_codes(),
-    lambda i: (i.enable_wide(dims=None, seeds=8),
-               i.search_batch_wide(np.zeros((1, 8), np.float32), 3,
-                                   score="pq")),
-    lambda i: i.enable_wide(inline=True)])
-def test_unported_parts_raise_naming_roadmap(call):
-    x = np.random.default_rng(2).normal(size=(64, 8)).astype(np.float32)
-    idx = HNSW(M=4, ef_construction=20, rng=random.Random(1), device="cpu")
-    idx.bulk_build(range(64), x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(idx)
-
-
 def test_datasets_copy_gives_the_same_bytes(tmp_path):
     a = datasets.embedding_like(300, 24, seed=3, intrinsic=8)
     b = jax_datasets.embedding_like(300, 24, seed=3, intrinsic=8,

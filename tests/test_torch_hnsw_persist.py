@@ -166,8 +166,8 @@ def test_wide_state_roundtrips(tmp_path):
 
 def test_pq_and_rp_arrays_are_carried_through(tmp_path):
     """A JAX file with trained PQ (OPQ rotation) and RP state: the port
-    loads it (those modes still raise), saves, and JAX reloads the port's
-    file with the arrays bit for bit."""
+    loads it into live PQ and RP state (both searches answer), saves, and
+    JAX reloads the port's file with the arrays bit for bit."""
     x, q = _data(8)
     path = tmp_path / "g.npz"
     ref = _built(JaxHNSW, x, path)
@@ -181,8 +181,10 @@ def test_pq_and_rp_arrays_are_carried_through(tmp_path):
                 storage=_storage(InMemoryNodeStorage, Node, x,
                                  skip=(7, 550)),
                 index_file=path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search_batch_pq(q, 5)
+    for call in (port.search_batch_pq, port.search_batch_rp):
+        d, ids = call(q, 5, ef=32)
+        assert ids.shape == (20, 5) and (ids >= 0).all()
+        assert not np.isin(ids, [7, 550]).any()
     port.insert_arrays([5000], x[:1] + 0.5)
     path.unlink()
     port.save_index()

@@ -164,21 +164,21 @@ def test_port_built_index_meets_ivf_floors():
 
 
 def test_port_built_index_meets_ivf_pq_floors():
-    """tests/index/test_ivf_pq.py's floors, probing k - 1 of k cells (the
-    full-scan PQ path is not ported)."""
+    """tests/index/test_ivf_pq.py's floors, at its n_probe = k (the full
+    scan)."""
     rng = np.random.default_rng(5)
     x = rng.standard_normal((400, 32)).astype(np.float32)
     index = IvfIndex(k=8, device="cpu")
     index.build_index(_nodes(x))
     index.enable_pq(chunks=8, ksub=32)
     q = rng.standard_normal((6, 32)).astype(np.float32)
-    _, ids = index.search_batch(q, n_probe=7, top_k=5, pq=True)
+    _, ids = index.search_batch(q, n_probe=8, top_k=5, pq=True)
     assert recall(ids, _brute(x, q, 5)) >= 0.7
-    d, ids = index.search_batch(x[:3], n_probe=7, top_k=1, pq=True)
+    d, ids = index.search_batch(x[:3], n_probe=8, top_k=1, pq=True)
     np.testing.assert_array_equal(ids[:, 0], [0, 1, 2])
     assert np.all(d[:, 0] < 1e-2)
     allowed = set(int(i) for i in rng.choice(400, 150, replace=False))
-    _, ids = index.search_batch(q, n_probe=7, top_k=5, pq=True,
+    _, ids = index.search_batch(q, n_probe=8, top_k=5, pq=True,
                                 filter_ids=allowed, fetch=128)
     want = _brute(x, q, 5, rows=sorted(allowed))
     for i in range(6):
@@ -244,16 +244,11 @@ def test_errors_match_jax(case):
         _raises(lambda: run(JaxIvf))
 
 
-def test_unported_modes_raise_not_implemented():
+def test_unknown_adc_mode_raises():
     _, x, q = _data(8, rows=200)
     index = IvfIndex(k=4, device="cpu")
     index.build_index(_nodes(x))
     index.enable_pq(chunks=4, ksub=16)
-    for call in (lambda: index.enable_rp(),
-                 lambda: index.search_batch(q, 2, 3, rp=True),
-                 lambda: index.search_batch(q, 4, 3, pq=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
     with pytest.raises(ValueError, match="adc"):
         index.search_batch(q, 2, 3, pq=True, adc="bogus")
 

@@ -110,3 +110,24 @@ def test_merge_top_k():
     got = pt.merge_top_k(t(da), t(ia), t(db), t(ib), 8)
     want = jt.merge_top_k(*(jnp.asarray(a) for a in (da, ia, db, ib)), 8)
     assert_topk_parity(*got, *want)
+
+
+@pytest.mark.parametrize("kind", ["distinct", "ties", "pads"])
+def test_smallest_stable_matches_lax_top_k(kind):
+    """ops.topk.smallest_stable: the k smallest with lax.top_k's order
+    (ties to the lower position, membership included), on both of its
+    paths (no copies of the k-th value past the cut, and copies past it)."""
+    import jax
+
+    from vector_db_tpu_torch.ops.topk import smallest_stable
+
+    rng = np.random.default_rng(len(kind))
+    hi = {"distinct": 1 << 30, "ties": 6, "pads": 1 << 30}[kind]
+    x = rng.integers(0, hi, (9, 257)).astype(np.float32)
+    if kind == "pads":
+        x[:, rng.integers(0, 257, 200)] = 3e38
+    for k in (1, 17, 100, 257):
+        v, p = smallest_stable(torch.from_numpy(x), k)
+        nv, npos = jax.lax.top_k(-x, k)
+        np.testing.assert_array_equal(v.numpy(), -np.asarray(nv))
+        np.testing.assert_array_equal(p.numpy(), np.asarray(npos))

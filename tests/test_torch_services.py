@@ -12,10 +12,13 @@ compared:
   graphs and bf16 selections may differ in ties; the IVF builds draw
   their k-means initial rows alike, test_torch_ivf._same_init).
 
-Also: each config the port lacks raises at construction naming its
-ROADMAP item; an index file saved by one package's service reopens in the
-other's; searches running beside inserts see whole batches only; the
-config's device spellings.
+Also: the PQ, RP and pool-free beam routes (tests/services/
+test_index_types.py:125-160, :230-330, :397-435), each answer equal to the
+direct index call the JAX service makes and its recall near the JAX
+service's; each config the port lacks (autotune, sharded-hnsw) raises at
+construction naming its ROADMAP item; an index file saved by one package's
+service reopens in the other's; searches running beside inserts see whole
+batches only; the config's device spellings.
 """
 
 import sys
@@ -499,8 +502,8 @@ def test_ivf_n_probe_changes_probing(tmp_path, rng):
 
 def test_ivf_pq_via_config(tmp_path, rng, monkeypatch):
     """index.type: ivf + index.pq activates residual IVFADC probing once
-    the corpus passes min_size. (ivf_k 8 with n_probe 4: a PQ probe of
-    every cell, n_probe >= ivf_k, is ROADMAP A5.2.)"""
+    the corpus passes min_size (ivf_k 8 with n_probe 4: the probe; the
+    full scan at n_probe >= ivf_k is test_ivf_pq_full_scan_via_config)."""
     pair = services(tmp_path, "ivf", monkeypatch, ivf_k=8,
                     pq={"chunks": 4, "ksub": 16, "min_size": 16,
                         "residual": True})
@@ -655,18 +658,9 @@ def test_scan_batch_threshold_routing(tmp_path, rng, monkeypatch):
 # ---- what the port lacks, the device, both packages' files ----
 
 @pytest.mark.parametrize("jax_test,index_type,extra,item", [
-    ("test_hnsw_pq_via_config", "hnsw",
-     {"pq": {"chunks": 4, "ksub": 16, "min_size": 32}}, "A5.4"),
-    ("test_hnsw_rp_via_config", "hnsw",
-     {"rp": {"dims": 8, "min_size": 16}}, "A5.4"),
-    ("test_ivf_rp_via_config", "ivf",
-     {"ivf_k": 4, "rp": {"dims": 8, "min_size": 16}}, "A5.2"),
     ("test_sharded_hnsw_service", "sharded-hnsw", {}, "A7"),
     ("test_sharded_hnsw_multislice_config", "sharded-hnsw", {"slices": 2},
      "A7"),
-    ("test_hnsw_wide_beam_mode_service", "hnsw",
-     {"wide": {"dims": 0, "seeds": 64, "min_size": 16, "mode": "beam"}},
-     "A5.3"),
     ("tests/services/test_autotune.py", "hnsw",
      {"autotune": {"target_recall": 0.9, "min_size": 16}}, "A6"),
 ])
@@ -678,10 +672,46 @@ def test_unported_configs_raise_at_construction(tmp_path, jax_test,
         IndexingService(storage=storage.storage, config_path=cfg)
 
 
-def test_pq_chunks_request_param_raises_naming_roadmap(tmp_path, rng):
-    """The counterpart of test_pq_chunks_request_param: a request's
-    pq_chunks that would switch hnsw to PQ traversal (ROADMAP A5.4) raises
-    on that request; a corpus below min_size serves it as before."""
+# ---- the PQ, RP and pool-free beam routes (test_index_types.py) ----
+
+def test_hnsw_pq_via_config(tmp_path, rng, monkeypatch):
+    """index.pq on hnsw: the first search past min_size trains PQ (both
+    packages' k-means from the same initial rows) and traverses on ADC
+    with an exact rerank; an insert marks the codes stale and the next
+    search refreshes them and finds the new node. Equal to the direct
+    search_batch_pq call (ef, expand 4). The JAX service flags the codes
+    stale; the port's index keys them on its table version."""
+    pair = services(tmp_path, "hnsw", monkeypatch,
+                    pq={"chunks": 4, "ksub": 16, "min_size": 32})
+    nodes = make_nodes(rng, 100)
+    both(pair, "insert_nodes", nodes)
+    stale = (lambda svc: svc._pq_stale,
+             lambda svc: svc.index._pq_codes[0] != svc.index._version)
+    for svc, is_stale in zip(pair, stale):
+        res = svc.search(nodes[11].embedding, k=1, ef=40)
+        assert svc._pq_active
+        assert res[0][0].id == 11 and res[0][1] < 1e-2
+        new = Node(id=500, embedding=rng.standard_normal(16).astype(
+            np.float32))
+        svc.insert_node(new)
+        assert is_stale(svc)
+        assert svc.search(new.embedding, k=1, ef=40)[0][0].id == 500
+        assert not is_stale(svc)
+    port = pair[1]
+    q = nodes[3].embedding
+    want = port.index.search_batch_pq(q[None, :], 5, ef=40, expand=4)
+    got = port.search(q, k=5, ef=40)
+    assert ids_of(got) == [int(i) for i in want[1][0] if i >= 0]
+    np.testing.assert_allclose([d for _, d in got], want[0][0], rtol=1e-6)
+    queries = rng.standard_normal((12, 16)).astype(np.float32)
+    assert_recall_near_jax(pair, queries,
+                           exact_ids(nodes + [new], queries, 5), 5, ef=40)
+
+
+def test_pq_chunks_request_param(tmp_path, rng):
+    """No config pq, but a request's pq_chunks activates PQ traversal on
+    hnsw once the corpus is big enough (below min_size it serves the
+    classic beam)."""
     cfg = make_config(tmp_path, "hnsw")
     storage = StorageService(str(tmp_path / "vdb"), dim=16, capacity=256)
     svc = IndexingService(storage=storage.storage, config_path=cfg)
@@ -691,11 +721,125 @@ def test_pq_chunks_request_param_raises_naming_roadmap(tmp_path, rng):
     svc.insert_nodes(nodes)
     assert svc.search(nodes[5].embedding, k=1, ef=40,
                       pq_chunks=4)[0][0].id == 5
-    svc.insert_nodes(make_nodes(rng, 60, start=20))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A5.4"):
-        svc.search(nodes[5].embedding, k=1, ef=40, pq_chunks=4)
     assert not svc._pq_active
-    assert svc.search(nodes[5].embedding, k=1, ef=40)[0][0].id == 5
+    svc.insert_nodes(make_nodes(rng, 60, start=20))
+    res = svc.search(nodes[5].embedding, k=1, ef=40, pq_chunks=4)
+    assert svc._pq_active and res[0][0].id == 5
+
+
+def test_hnsw_rp_via_config(tmp_path, rng):
+    """index.rp on hnsw: projected traversal past min_size, equal to the
+    direct search_batch_rp call; a late insert is found (the mirror
+    rebuilds); filtered searches take the f32 masked beam."""
+    pair = services(tmp_path, "hnsw", rp={"dims": 8, "min_size": 16})
+    nodes = make_nodes(rng, 48)
+    both(pair, "insert_nodes", nodes)
+    late = Node(id=777, embedding=rng.standard_normal(16).astype(np.float32),
+                metadata={"par": 1})
+    for svc in pair:
+        assert svc.search(nodes[11].embedding, k=3, ef=40)[0][0].id == 11
+        assert svc._rp_active
+        svc.insert_nodes([late])
+        assert svc.search(late.embedding, k=1, ef=40)[0][0].id == 777
+        fres = svc.search(nodes[4].embedding, k=5,
+                          filter_ids={n.id for n in nodes if n.id % 2 == 0})
+        assert fres and all(n.id % 2 == 0 for n, _ in fres)
+    port = pair[1]
+    want = port.index.search_batch_rp(nodes[6].embedding[None, :], 3, ef=40,
+                                      expand=4)
+    got = port.search(nodes[6].embedding, k=3, ef=40)
+    assert ids_of(got) == [int(i) for i in want[1][0] if i >= 0]
+    queries = rng.standard_normal((12, 16)).astype(np.float32)
+    assert_recall_near_jax(pair, queries,
+                           exact_ids(nodes + [late], queries, 5), 5, ef=40)
+
+
+@pytest.mark.parametrize("n_probe", [4, 8])
+def test_ivf_rp_via_config(tmp_path, rng, monkeypatch, n_probe):
+    """index.rp on ivf: RP probing (n_probe 4 of 8) and the full scan
+    (n_probe = ivf_k); late adds are found; filters stay inside. Equal to
+    the direct search_batch(rp=True) call."""
+    pair = services(tmp_path, "ivf", monkeypatch, ivf_k=8,
+                    rp={"dims": 8, "min_size": 16})
+    nodes = make_nodes(rng, 64)
+    both(pair, "insert_nodes", nodes)
+    late = Node(id=999, embedding=rng.standard_normal(16).astype(np.float32),
+                metadata={})
+    for svc in pair:
+        assert svc.search(nodes[9].embedding, k=3,
+                          n_probe=n_probe)[0][0].id == 9
+        assert svc._rp_active
+        svc.insert_nodes([late])
+        assert svc.search(late.embedding, k=1,
+                          n_probe=n_probe)[0][0].id == 999
+        fres = svc.search(nodes[8].embedding, k=5, n_probe=n_probe,
+                          filter_ids={n.id for n in nodes if n.id % 2 == 0})
+        assert all(n.id % 2 == 0 for n, _ in fres)
+    port = pair[1]
+    q = np.stack([n.embedding for n in nodes[:6]])
+    want = port.index.search_batch(q, n_probe=n_probe, top_k=3, rp=True,
+                                   filter_ids=None)
+    got = port.search_batch(q, k=3, n_probe=n_probe)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    queries = rng.standard_normal((12, 16)).astype(np.float32)
+    assert_recall_near_jax(pair, queries,
+                           exact_ids(nodes + [late], queries, 5), 5,
+                           n_probe=n_probe)
+
+
+def test_ivf_pq_full_scan_via_config(tmp_path, rng, monkeypatch):
+    """index.pq on ivf at n_probe = ivf_k: the full-scan IVF-PQ (the
+    adc_topk route), equal to the direct call, recall near JAX's."""
+    pair = services(tmp_path, "ivf", monkeypatch, ivf_k=8,
+                    pq={"chunks": 4, "ksub": 16, "min_size": 16})
+    nodes = make_nodes(rng, 64)
+    both(pair, "insert_nodes", nodes)
+    port = pair[1]
+    assert port.search(nodes[9].embedding, k=3, n_probe=8)[0][0].id == 9
+    assert port._pq_active
+    q = np.stack([n.embedding for n in nodes[:6]])
+    want = port.index.search_batch(q, n_probe=8, top_k=3, pq=True,
+                                   filter_ids=None)
+    got = port.search_batch(q, k=3, n_probe=8)
+    np.testing.assert_array_equal(got[1], want[1])
+    assert list(got[1][:, 0]) == [n.id for n in nodes[:6]]
+    queries = rng.standard_normal((12, 16)).astype(np.float32)
+    assert_recall_near_jax(pair, queries, exact_ids(nodes, queries, 5), 5,
+                           n_probe=8)
+
+
+@pytest.mark.parametrize("engine", ["scan", "graph"])
+def test_hnsw_wide_beam_mode_service(tmp_path, rng, engine):
+    """index.wide.mode: beam routes unfiltered hnsw queries (and, under
+    filtered_engine: graph, filtered ones) to the pool-free beam, equal to
+    the direct search_batch_beam call."""
+    pair = services(tmp_path, "hnsw", filtered_engine=engine,
+                    wide={"dims": 0, "seeds": 64, "frontier": 16,
+                          "steps": 10, "min_size": 16, "mode": "beam"})
+    nodes = make_nodes(rng, 40)
+    both(pair, "insert_nodes", nodes)
+    for svc in pair:
+        res = svc.search(nodes[9].embedding, k=3, ef=32)
+        assert svc._wide_active and svc._wide_mode == "beam"
+        assert res[0][0].id == 9 and res[0][1] < 1e-3
+        _, ids = svc.search_batch(
+            np.stack([n.embedding for n in nodes[:4]]), k=1, ef=32)
+        assert list(ids[:, 0]) == [0, 1, 2, 3]
+    port = pair[1]
+    q = np.stack([n.embedding for n in nodes[5:9]])
+    allowed = {n.id for n in nodes if n.id % 2 == 0}
+    for filt in (None, allowed):
+        got = port.search_batch(q, k=3, filter_ids=filt)
+        if filt is not None and engine == "scan":
+            want = port.index.search_batch_scan(q, 3, filter_ids=filt)
+        else:
+            want = port.index.search_batch_beam(q, 3, frontier=16, steps=10,
+                                                hist=2, filter_ids=filt)
+        np.testing.assert_array_equal(got[1], want[1])
+    queries = rng.standard_normal((12, 16)).astype(np.float32)
+    assert_recall_near_jax(pair, queries, exact_ids(nodes, queries, 5), 5,
+                           ef=32)
 
 
 @pytest.mark.parametrize("device", ["cuda", "auto", "tpu", "CPU", "cpu"])

@@ -40,9 +40,10 @@ _SIGNATURES = {
     "vdb_adc_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # B, N, m, ksub, k, codes, is_u8, valid, *splits, *scratch
     "vdb_adc_topk_plan": [_I, _L, _I, _I, _I, _P, _I, _P, _IP, _LP],
-    # lut, codes, is_u8, valid, B, N, m, ksub, k, scratch, out_v, out_i,
-    # stream
-    "vdb_adc_topk": [_P, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P],
+    # lut, codes, is_u8, valid, row_bias, group_bias, group, B, N, m, ksub,
+    # k, scratch, out_v, out_i, stream
+    "vdb_adc_topk": [_P, _P, _I, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P, _P,
+                     _P, _P],
     # keys, is_bf16, vals, B, n, slice_w, topk, out_keys, out_vals, out_w,
     # stream
     "vdb_sorted_topk": [_P, _I, _P, _I, _L, _I, _I, _P, _P, _L, _P],

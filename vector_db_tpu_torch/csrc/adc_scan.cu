@@ -1,5 +1,10 @@
 // Full-corpus ADC (asymmetric distance) scan with a running top-k per query:
-// dist[b, n] = sum_j lut[b, j, codes[n, j]] over the valid rows n.
+// dist[b, n] = sum_j lut[b, j, codes[n, j]] over the valid rows n, plus two
+// optional additive terms: row_bias[n] and group_bias[b, n / group]. The
+// full-scan residual IVF-PQ (IvfIndex.search_batch at n_probe = k) runs on
+// them: its rows are the cells' padded slots, flattened, row_bias the
+// stored residual scalar and group_bias the (query, cell) coarse term, the
+// cell's padded length being the group.
 //
 // Replaces the Pallas TPU kernel vector_db_tpu/ops/pallas/adc_scan.py:
 // adc_topk. The TPU kernel turns the LUT gather into a [tile, m * ksub]
@@ -41,8 +46,9 @@
 // - One CTA per SM (its LUTs fill shared memory), 16 warps, one wave:
 //   each CTA owns one (query group, corpus split) pair; the wrapper merges
 //   the [B, splits * k] lists. make_plan picks Q (up to 8, no more than B
-//   needs), the tile (512 rows, down to 64 where m is large) and the ring's
-//   depth (4 tiles down to 1) that fit in shared memory.
+//   needs, fewer where long lists take the room: k runs to 2048), the tile
+//   (512 rows, down to 64 where m is large) and the ring's depth (4 tiles
+//   down to 1) that fit in shared memory.
 //
 // Ties: keys order by (value, row), so equal values keep row order within
 // a split; the wrapper's stable merge of the per-split lists keeps split
@@ -52,13 +58,16 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "topk_list.cuh"  // kBig, kMaxK
+#include "topk_list.cuh"  // kBig
 
 using namespace vdb;
 
 namespace {
 
 constexpr int kThreads = 512;  // 16 warps
+// the longest list: at m = 16, ksub = 256 a CTA then holds 2 queries' LUTs
+// beside their lists and buffers (make_plan halves Q until they fit)
+constexpr int kMaxAdcK = 2048;
 constexpr int kMaxTile = 512;  // rows a CTA scores between two barriers
 static_assert(kMaxTile == kThreads, "a tile is one row per thread's step");
 
@@ -229,8 +238,11 @@ template <int M, int Q>
 __global__ void __launch_bounds__(kThreads, 1)
 adc_scan_kernel(const float* __restrict__ lut,
                 const uint8_t* __restrict__ codes,
-                const uint8_t* __restrict__ valid, int B, int64_t N,
-                const Layout L, int k, int qgroups, int64_t rows_per_split,
+                const uint8_t* __restrict__ valid,
+                const float* __restrict__ row_bias,
+                const float* __restrict__ group_bias, int64_t group,
+                int64_t ngroups, int B, int64_t N, const Layout L, int k,
+                int qgroups, int64_t rows_per_split,
                 float* __restrict__ out_v, int* __restrict__ out_i,
                 int splits) {
   constexpr int G = lane_queries(Q);
@@ -314,6 +326,7 @@ adc_scan_kernel(const float* __restrict__ lut,
                                                  : 0x01010101u;
   const unsigned same = kEvery << (lane % kLanesPerRow);
   const int qoff = (lane % kLanesPerRow) * G;
+  const bool biased = row_bias != nullptr || group_bias != nullptr;
   for (int u = 0; u < ntiles; ++u) {
     const int s = u % stages;
     const int64_t r0 = lo + (int64_t)u * tile;
@@ -332,6 +345,20 @@ adc_scan_kernel(const float* __restrict__ lut,
       float acc[G];
       const bool ok = in && slot[tile * m + rl] != 0;
       if (in) score_row<M, Q, G>(lut_s, slot + rl * m, m, ksub, qoff, acc);
+      // the additive terms, in the plain version's order: the LUT sum, then
+      // the row's term, then the group's (slots past B stay +inf)
+      if (biased && ok) {
+        const float rb = row_bias ? __ldg(row_bias + row) : 0.f;
+        const int64_t grp = row / group;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const int b = q0 + qoff + g;
+          const float gb = group_bias && b < B
+                               ? __ldg(group_bias + (int64_t)b * ngroups + grp)
+                               : 0.f;
+          acc[g] = (acc[g] + rb) + gb;
+        }
+      }
       // candidates at or under the threshold into the buffers: one shared
       // atomic per (warp, query) gives each lane its place
 #pragma unroll
@@ -387,7 +414,7 @@ __global__ void narrow_kernel(const C* __restrict__ src,
 struct Plan {
   Layout L;
   int64_t rows_per_split;
-  int splits;  // 0: one query's LUT does not fit in shared memory
+  int splits;  // 0: one query's LUT and list do not fit in shared memory
   bool narrow, copy_mask;
   int64_t scratch;  // bytes: the narrowed table, then the mask copy
 };
@@ -434,10 +461,17 @@ int make_plan(int B, int64_t N, int m, int ksub, int k, const void* codes,
   return 0;
 }
 
+// the optional additive terms of a launch (null pointers: none)
+struct Bias {
+  const float* row;
+  const float* group_v;
+  int64_t group, ngroups;
+};
+
 template <int M, int Q>
 int launch_scan(const float* lut, const uint8_t* codes, const uint8_t* valid,
-                int B, int64_t N, int k, const Plan& p, float* out_v,
-                int* out_i, cudaStream_t stream) {
+                const Bias& bias, int B, int64_t N, int k, const Plan& p,
+                float* out_v, int* out_i, cudaStream_t stream) {
   const int qgroups = (B + Q - 1) / Q;
   const int64_t grid = (int64_t)qgroups * p.splits;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
@@ -451,17 +485,17 @@ int launch_scan(const float* lut, const uint8_t* codes, const uint8_t* valid,
     granted = smem;
   }
   adc_scan_kernel<M, Q><<<(unsigned)grid, kThreads, smem, stream>>>(
-      lut, codes, valid, B, N, p.L, k, qgroups, p.rows_per_split, out_v,
-      out_i, p.splits);
+      lut, codes, valid, bias.row, bias.group_v, bias.group, bias.ngroups, B,
+      N, p.L, k, qgroups, p.rows_per_split, out_v, out_i, p.splits);
   return (int)cudaGetLastError();
 }
 
 template <int Q>
 int launch_m(const float* lut, const uint8_t* codes, const uint8_t* valid,
-             int B, int64_t N, int k, const Plan& p, float* out_v, int* out_i,
-             cudaStream_t s) {
+             const Bias& bias, int B, int64_t N, int k, const Plan& p,
+             float* out_v, int* out_i, cudaStream_t s) {
 #define VDB_SCAN(MM) \
-  launch_scan<MM, Q>(lut, codes, valid, B, N, k, p, out_v, out_i, s)
+  launch_scan<MM, Q>(lut, codes, valid, bias, B, N, k, p, out_v, out_i, s)
   switch (p.L.m) {
     case 4: return VDB_SCAN(4);
     case 8: return VDB_SCAN(8);
@@ -474,17 +508,18 @@ int launch_m(const float* lut, const uint8_t* codes, const uint8_t* valid,
 }
 
 bool bad_args(int B, long long N, int m, int ksub, int k) {
-  return B < 0 || N < 0 || k < 1 || k > kMaxK || ksub < 1 || ksub > 256 ||
+  return B < 0 || N < 0 || k < 1 || k > kMaxAdcK || ksub < 1 || ksub > 256 ||
          m < 1;
 }
 
 }  // namespace
 
 // The launch vdb_adc_topk makes for these arguments: *splits corpus splits
-// (its outputs are [B, splits * k]; 0 when one query's LUT does not fit in
-// shared memory) and *scratch bytes of uint8 scratch it needs (0: none).
-// codes and valid are the pointers that call will get (their alignment
-// decides the scratch). Returns a CUDA error code (0 on success).
+// (its outputs are [B, splits * k]; 0 when one query's LUT, list and
+// buffer do not fit in shared memory) and *scratch bytes of uint8 scratch
+// it needs (0: none). codes and valid are the pointers that call will get
+// (their alignment decides the scratch). Returns a CUDA error code (0 on
+// success).
 extern "C" int vdb_adc_topk_plan(int B, long long N, int m, int ksub, int k,
                                  const void* codes, int is_u8,
                                  const void* valid, int* splits,
@@ -498,16 +533,21 @@ extern "C" int vdb_adc_topk_plan(int B, long long N, int m, int ksub, int k,
 }
 
 // lut: f32 [B, m, ksub]; codes: int32 [N, m] (is_u8 = 0) or uint8 [N, m]
-// (is_u8 = 1); valid: bool [N] as bytes; scratch: the bytes
+// (is_u8 = 1); valid: bool [N] as bytes; row_bias: f32 [N] or null;
+// group_bias: f32 [B, ceil(N / group)] or null (group >= 1); scratch: the bytes
 // vdb_adc_topk_plan asked for; out_v / out_i: f32 / int32 [B, splits * k],
 // split s the lists of rows [s * N_s, (s + 1) * N_s) for N_s =
-// ceil(N / splits) rounded up to a tile. k <= 256, ksub <= 256. Returns the
+// ceil(N / splits) rounded up to a tile. k <= 2048, ksub <= 256. Returns the
 // CUDA error code of the launches (0 on success).
 extern "C" int vdb_adc_topk(const float* lut, const void* codes, int is_u8,
-                            const uint8_t* valid, int B, long long N, int m,
-                            int ksub, int k, uint8_t* scratch, float* out_v,
-                            int* out_i, void* stream) {
-  if (bad_args(B, N, m, ksub, k)) return (int)cudaErrorInvalidValue;
+                            const uint8_t* valid, const float* row_bias,
+                            const float* group_bias, long long group, int B,
+                            long long N, int m, int ksub, int k,
+                            uint8_t* scratch, float* out_v, int* out_i,
+                            void* stream) {
+  if (bad_args(B, N, m, ksub, k) || group < 1)
+    return (int)cudaErrorInvalidValue;
+  const Bias bias{row_bias, group_bias, group, (N + group - 1) / group};
   if (B == 0 || N == 0) return 0;
   Plan p;
   int err = make_plan(B, N, m, ksub, k, codes, is_u8, valid, &p);
@@ -537,7 +577,7 @@ extern "C" int vdb_adc_topk(const float* lut, const void* codes, int is_u8,
   }
   switch (p.L.q) {
 #define VDB_Q(QQ) \
-  launch_m<QQ>(lut, table, valid, B, N, k, p, out_v, out_i, s)
+  launch_m<QQ>(lut, table, valid, bias, B, N, k, p, out_v, out_i, s)
     case 8: return VDB_Q(8);
     case 4: return VDB_Q(4);
     case 2: return VDB_Q(2);

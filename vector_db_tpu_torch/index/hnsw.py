@@ -14,18 +14,22 @@ What runs on the port: the bulk build from exact or clustered kNN
 ``insert_arrays``, ``insert_node``, ``build_index``: storage first, then
 exact or beam candidates and the grouped or sequential edge commit, per
 batch), delete, the classic best-first search (``search_batch``,
-``search``), wide-beam search (``enable_wide``, ``search_batch_wide``),
-and persistence in the JAX package's split-adjacency npz
-(``save_index``, ``load_index``, ``snapshot_for_save``,
-``write_snapshot``; a load re-links rows that storage holds and the
+``search``), PQ and projected traversal (``enable_pq``,
+``search_batch_pq``, ``refresh_pq_codes``; ``enable_rp``,
+``search_batch_rp``), wide-beam search (``enable_wide`` with or without
+the int8 inline tables, ``search_batch_wide`` over the exact or the
+PQ-decoded mirror) and the pool-free beam (``search_batch_beam``),
+persistence in the JAX package's split-adjacency npz (``save_index``,
+``load_index``, ``snapshot_for_save``, ``write_snapshot``, with the trained
+PQ, RP and wide-beam state; a load re-links rows that storage holds and the
 graph does not, ``recover_unlinked``), and the corpus scans over the same
 table (``search_batch_scan``: bf16, exact, blocksel). ``load_state``
-adopts a JAX index's arrays. PQ and RP traversal and the pool-free beam
-raise ``NotImplementedError`` naming their ROADMAP item; a loaded file's PQ
-and RP arrays are kept and written back.
+adopts a JAX index's arrays.
 
 The tables are updated in place; a mutation counter (``_version``)
-invalidates the derived mirrors (the JAX package tracks array identity).
+invalidates the derived mirrors and the PQ codes (the JAX package tracks
+array identity, and leaves PQ codes to ``refresh_pq_codes``): each
+rebuilds on first use after a change.
 """
 
 from __future__ import annotations
@@ -39,10 +43,11 @@ from typing import List, Optional, Sequence, Set, Tuple, Union
 import numpy as np
 import torch
 
-from vector_db_tpu_torch.device import resolve_device
+from vector_db_tpu_torch.device import require_f32_matmul, resolve_device
 from vector_db_tpu_torch.index import hnsw_kernels as K
 from vector_db_tpu_torch.index import wide_beam as WB
 from vector_db_tpu_torch.index.flat import pca_projection
+from vector_db_tpu_torch.index.pq import PQCodec, _encode_scan
 from vector_db_tpu_torch.ops.distance import squared_norms
 from vector_db_tpu_torch.ops.exact import (
     approx_search_tiled,
@@ -74,10 +79,10 @@ MIN_CAPACITY = 256
 BULK_HOST_THRESHOLD = 8192
 BULK_EXACT_THRESHOLD = 262144
 
-_PQ_RP = "HNSW PQ/RP traversal is not ported yet (ROADMAP queue A5.4)"
-# trained state of the modes above: a loaded file's arrays are kept and
-# written back on the next save
-_CARRIED_AUX = ("rp_proj", "pq_codebooks", "pq_rotation")
+# trained state an index file carries besides the graph (f32 arrays)
+_AUX_KEYS = ("wb_proj", "rp_proj", "pq_codebooks", "pq_rotation")
+# the inline tables' auto qchunk: max frontier * queries a chunk
+_INLINE_BUDGET = 262144
 
 
 def _up2(v: int, lo: int = 8) -> int:
@@ -208,13 +213,18 @@ class HNSW:
         self.construction_mode = "exact"
         self.insert_expand = 4
         self.device = resolve_device(device)
-        self._aux: dict = {}    # _CARRIED_AUX arrays of a loaded file
         self.graph: Optional[K.Graph] = None
         self._levels_host: Optional[np.ndarray] = None
         self._version = 0       # bumped by every table mutation
         self._emb16 = None      # (version, bf16 mirror: traversal, scans)
-        self._wb = None         # (version, aug mirror, seed slots)
+        self._wb = None         # (version, aug mirror, seeds, inline tables)
+        self._wb_pq = None      # (version, PQ-decoded aug mirror)
+        self._wb_inline = False  # enable_wide(inline=True): inline tables
         self._scan_sq = None    # (version, f32 row norms for the scans)
+        self._pq: Optional[PQCodec] = None
+        self._pq_codes = None   # (version, int32[capacity, m] codes)
+        self._rp_proj: Optional[torch.Tensor] = None   # f32[dim, dp]
+        self._rp = None         # (version, bf16 x^ mirror, f32 ||x||^2)
         self._store = DeviceVectorStore(capacity=capacity,
                                         on_grow=self._grow_graph,
                                         device=self.device)
@@ -473,12 +483,19 @@ class HNSW:
                              entry_level=int(levels_np[entry_idx]))
 
     def load_state(self, neighbors, levels, entry, entry_level, emb, valid,
-                   id_of_slot) -> None:
+                   id_of_slot, pq_codebooks=None, pq_rotation=None,
+                   pq_codes=None, rp_proj=None, wb_proj=None,
+                   wb_n_seeds=None, wb_inline=False) -> None:
         """Adopt another index's state: a JAX ``HNSW``'s
         ``np.asarray(graph.neighbors)``, ``np.asarray(graph.levels)``,
         ``int(graph.entry)``, ``int(graph.entry_level)``, and its store's
         ``np.asarray(emb)``, ``np.asarray(valid)`` and
-        ``export_id_map()``."""
+        ``export_id_map()``; with its trained state where given: the PQ
+        codec (``_pq.codebooks``, ``_pq.rotation``) and codes
+        (``_pq_codes``; re-encoded when omitted), the RP projection
+        (``_rp_proj``), and the wide beam's state as ``enable_wide`` leaves
+        it (``_wb_proj``, ``_wb_n_seeds``, ``_wb_inline``): with
+        ``wb_n_seeds`` the wide beam is enabled with that projection."""
         neighbors = np.asarray(neighbors, np.int32)
         levels = np.asarray(levels, np.int32)
         if neighbors.shape != (levels.shape[0],
@@ -495,6 +512,24 @@ class HNSW:
             entry=int(entry), entry_level=int(entry_level))
         self._levels_host = levels.copy()
         self._version += 1
+        dev = self.device
+        self._pq = self._pq_codes = None
+        if pq_codebooks is not None:
+            self._pq = PQCodec.from_arrays(pq_codebooks, pq_rotation,
+                                           device=dev)
+            if pq_codes is not None:
+                self._pq_codes = (self._version, torch.tensor(
+                    np.asarray(pq_codes, np.int32), device=dev))
+        self._rp_proj = (None if rp_proj is None else
+                         torch.tensor(np.asarray(rp_proj, np.float32),
+                                      device=dev))
+        self._rp = None
+        if wb_n_seeds is not None:
+            self._wb_proj = (None if wb_proj is None else torch.tensor(
+                np.asarray(wb_proj, np.float32), device=dev))
+            self._wb_n_seeds = int(wb_n_seeds)
+            self._wb_inline = bool(wb_inline)
+            self._wb = self._wb_pq = None
 
     # ------------------------------------------------------------------
     def delete_node(self, node_id: int) -> None:
@@ -510,25 +545,173 @@ class HNSW:
             self.storage.delete(node_id)
 
     # ------------------------------------------------------------------
-    def enable_pq(self, *args, **kwargs) -> None:
-        raise NotImplementedError(_PQ_RP)
-
-    def enable_rp(self, *args, **kwargs) -> None:
-        raise NotImplementedError(_PQ_RP)
-
-    def search_batch_pq(self, *args, **kwargs):
-        raise NotImplementedError(_PQ_RP)
-
-    def search_batch_rp(self, *args, **kwargs):
-        raise NotImplementedError(_PQ_RP)
+    def enable_pq(self, chunks: int = 16, ksub: int = 256, seed: int = 0,
+                  restarts: int = 2, opq_iters: int = 0) -> None:
+        """PQ traversal: train per-subspace codebooks (after an OPQ rotation
+        when ``opq_iters`` > 0) on up to 131,072 live rows and encode the
+        table; ``search_batch_pq`` then traverses on ADC estimates and
+        reranks exactly, and ``search_batch_wide(score="pq")`` /
+        ``search_batch_beam(score="pq")`` score from the PQ-decoded
+        mirror."""
+        if self._dim is None or self.size == 0:
+            raise ValueError("enable_pq requires a populated index")
+        ksub = min(ksub, max(2, self.size))
+        self._pq = PQCodec(k=ksub, chunks=chunks, dim=self._dim,
+                           device=self.device)
+        live_slots = np.asarray(sorted(self._slot_of_id.values()))
+        if live_slots.size > 131072:
+            live_slots = np.random.default_rng(seed).choice(
+                live_slots, 131072, replace=False)
+        sample = self._emb[torch.from_numpy(live_slots).to(
+            self.device)].cpu().numpy()
+        self._pq.train(sample, seed=seed, restarts=restarts,
+                       opq_iters=opq_iters)
+        self.refresh_pq_codes()
 
     def refresh_pq_codes(self) -> None:
-        raise NotImplementedError(_PQ_RP)
+        """Encode the whole table (dead rows too: masked at query time) with
+        the trained codebooks, no retraining. The PQ searches call it
+        themselves once the table changed since the last encode."""
+        if self._pq is None:
+            return
+        self._pq_codes = (self._version, _encode_scan(
+            self._emb, self._pq.codebooks, chunk=8192,
+            rotation=self._pq.rotation))
 
-    def search_batch_beam(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the pool-free wide beam (wide_beam.beam_search) is not ported "
-            "yet (ROADMAP queue A5.3)")
+    def _pq_table(self) -> torch.Tensor:
+        """The PQ codes of the current table (re-encoded after a change)."""
+        if self._pq_codes is None or self._pq_codes[0] != self._version:
+            self.refresh_pq_codes()
+        return self._pq_codes[1]
+
+    def search_batch_pq(
+        self,
+        queries: np.ndarray,
+        k: int,
+        ef: int = 50,
+        expand: int = 1,
+        rerank: bool = True,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """PQ-traversal search (requires enable_pq). Same contract as
+        search_batch; without ``rerank`` the distances are the ADC
+        estimates."""
+        if self._pq is None:
+            raise ValueError("call enable_pq() first")
+        queries = np.asarray(queries, np.float32)
+        if self.size == 0:
+            b = queries.shape[0]
+            return (np.full((b, k), np.inf, np.float32),
+                    np.full((b, k), -1, np.int64))
+        ef = max(ef, k)
+        q_dev = torch.from_numpy(queries).to(self.device)
+        d_sq, slots = K.search_batch_pq(
+            self.graph, self._pq_table(), self._pq.codebooks, self._emb,
+            self._has_emb, q_dev, self._pq.rotate_queries(queries),
+            M=self.M, l_max=self.l_max, ef=ef, k=k,
+            max_steps=self.max_steps or (2 * ef + 16), expand=expand,
+            rerank=rerank)
+        return self._to_host(d_sq, slots, queries.shape[0], k)
+
+    def enable_rp(self, dims: int = 128, train_sample: int = 131072,
+                  seed: int = 0) -> None:
+        """Projected traversal (pHNSW-style): the beam scores a bf16 PCA
+        mirror x^ = x @ R of ``dims`` columns with ``||x||^2 - 2 q^ . x^``,
+        and the ef candidates are rescored exactly. The mirror rebuilds on
+        first use after a change to the table."""
+        if self.graph is None or self.size == 0:
+            raise ValueError("index must contain vectors before enable_rp")
+        self._rp_proj = self._pca_proj(int(min(dims, self._dim)))
+        self._rp = None
+
+    def _rp_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(x^ bf16[capacity, dims], ||x||^2 f32[capacity]), rebuilt after
+        any mutation (cached under ``_version``)."""
+        if self._rp is None or self._rp[0] != self._version:
+            emb = self._store.emb
+            require_f32_matmul(emb)
+            self._rp = (self._version,
+                        (emb @ self._rp_proj).to(torch.bfloat16),
+                        squared_norms(emb))
+        return self._rp[1], self._rp[2]
+
+    def search_batch_rp(
+        self,
+        queries: np.ndarray,
+        k: int,
+        ef: int = 50,
+        expand: int = 1,
+        bucket: bool = True,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Projected-traversal search (requires enable_rp). Same contract
+        as search_batch, ef, k and B bucketed as there."""
+        if self._rp_proj is None:
+            raise ValueError("call enable_rp() first")
+        queries = np.asarray(queries, np.float32)
+        b_orig, k_orig = queries.shape[0], k
+        if self.size == 0 or self.graph is None:
+            return (np.full((b_orig, k), np.inf, np.float32),
+                    np.full((b_orig, k), -1, np.int64))
+        ef = max(ef, k)
+        if bucket:
+            ef = _up2(ef, lo=16)
+            k = min(_up2(k, lo=8), ef)
+            b_pad = _up2(b_orig, lo=8) - b_orig
+            if b_pad:
+                queries = np.concatenate(
+                    [queries, np.zeros((b_pad, queries.shape[1]), np.float32)])
+        rp, xsq = self._rp_tables()
+        q_dev = torch.from_numpy(queries).to(self.device)
+        d_sq, slots = K.search_batch_rp(
+            self.graph, rp, xsq, self._emb, self._has_emb, q_dev,
+            q_dev @ self._rp_proj, M=self.M, l_max=self.l_max, ef=ef, k=k,
+            max_steps=self.max_steps or (2 * ef + 16), expand=expand)
+        return self._to_host(d_sq, slots, b_orig, k_orig)
+
+    def search_batch_beam(
+        self,
+        queries: np.ndarray,
+        k: int,
+        frontier: int = 224,
+        steps: int = 12,
+        rerank_k: int = 0,
+        hist: int = 2,
+        bucket: bool = True,
+        score: str = "exact",
+        filter_ids=None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Pool-free beam search (requires enable_wide; see
+        :func:`wide_beam.beam_search`): same contract as search_batch.
+        ``score="pq"`` traverses on the PQ-decoded mirror (requires
+        enable_pq), else the inline tables where ``enable_wide(inline=True)``
+        built them, else the aug mirror. ``filter_ids`` masks the kept
+        trajectory (navigation unfiltered)."""
+        if not hasattr(self, "_wb_n_seeds"):
+            raise ValueError("call enable_wide() first")
+        if score == "pq" and self._pq is None:
+            raise ValueError("score='pq' requires enable_pq()")
+        queries = np.asarray(queries, np.float32)
+        b_orig, k_orig = queries.shape[0], k
+        if self.size == 0 or self.graph is None:
+            return (np.full((b_orig, k), np.inf, np.float32),
+                    np.full((b_orig, k), -1, np.int64))
+        if bucket:
+            k = _up2(k, lo=8)
+            b_pad = _up2(b_orig, lo=8) - b_orig
+            if b_pad:
+                queries = np.concatenate(
+                    [queries, np.zeros((b_pad, queries.shape[1]), np.float32)])
+        rerank_k = rerank_k or max(4 * k, 64)
+        aug, seeds, inline_tabs = self._wide_scoring(score)
+        q_dev = torch.from_numpy(queries).to(self.device)
+        qa = WB.aug_queries(q_dev, self._wb_proj, aug.shape[1])
+        res_mask = (torch.from_numpy(self._store.filter_mask(filter_ids)).to(
+            self.device) if filter_ids is not None else None)
+        d_sq, slots = WB.beam_search(
+            self.graph.neighbors[:, : 2 * self.M], aug, self._emb,
+            self._has_emb, seeds, q_dev, qa, F=frontier, T=steps, k=k,
+            rerank_k=rerank_k, hist=hist, inline_tabs=inline_tabs,
+            res_mask=res_mask)
+        return self._to_host(d_sq, slots, b_orig, k_orig)
 
     def search_batch_scan(
         self,
@@ -598,25 +781,31 @@ class HNSW:
         """Activate wide-beam search: the PCA projection of the augmented
         bf16 scoring mirror (``dims=None``: the full embedding, no
         projection) and the seed count (the highest-level graph nodes).
-        The mirror rebuilds lazily after mutations."""
+        The mirror rebuilds lazily after mutations. ``inline=True`` also
+        builds the int8 inline neighbor tables
+        (:func:`wide_beam.build_inline_tables`, capacity * 2M * dims bytes),
+        which exact-score wide and beam traversal then read."""
         if self.graph is None or self.size == 0:
             raise ValueError("index must contain vectors before enable_wide")
-        if inline:
-            raise NotImplementedError(
-                "enable_wide(inline=True): the int8 inline neighbor tables "
-                "are not ported yet (ROADMAP queue A5.3)")
         if dims is None or dims >= self._dim:
             self._wb_proj = None
         else:
             self._wb_proj = self._pca_proj(int(dims))
         self._wb_n_seeds = int(seeds)
-        self._wb = None  # force mirror + seed rebuild
+        self._wb_inline = bool(inline)
+        self._wb = self._wb_pq = None  # force mirror + seed rebuild
 
     def _wide_tables(self):
-        """(aug mirror, seed slots), rebuilt after any mutation."""
+        """(aug mirror, seed slots), rebuilt after any mutation; the inline
+        tables with them when enabled."""
         if self._wb is None or self._wb[0] != self._version:
+            self._wb = None     # free the old tables before the new build
             aug = WB.build_aug_table(self._store.emb, self._has_emb,
                                      self._wb_proj)
+            inline_tabs = (WB.build_inline_tables(
+                self.graph.neighbors[:, : 2 * self.M], self._store.emb,
+                self._has_emb, self._wb_proj)
+                if self._wb_inline else None)
             levels = self._levels_host
             live = np.nonzero(levels >= 0)[0]
             order = live[np.argsort(-levels[live], kind="stable")]
@@ -624,8 +813,30 @@ class HNSW:
             seeds = np.full((max(s, 1),), -1, np.int32)
             seeds[:s] = order[:s]
             self._wb = (self._version, aug,
-                        torch.from_numpy(seeds).to(self.device))
+                        torch.from_numpy(seeds).to(self.device), inline_tabs)
         return self._wb[1], self._wb[2]
+
+    def _wide_tables_pq(self):
+        """(PQ-decoded aug mirror, seed slots): ADC traversal scores from
+        the current codes, rebuilt after any mutation."""
+        seeds = self._wide_tables()[1]
+        if self._wb_pq is None or self._wb_pq[0] != self._version:
+            self._wb_pq = (self._version, WB.build_aug_table_pq(
+                self._pq_table(), self._pq.codebooks, self._pq.rotation,
+                self._has_emb, self._wb_proj))
+        return self._wb_pq[1], seeds
+
+    def _wide_scoring(self, score: str):
+        """(aug mirror, seeds, inline tables or None) for a wide or beam
+        search scored by ``score``: "exact" (the aug mirror, or the inline
+        tables when enabled) or "pq" (the PQ-decoded mirror)."""
+        if score == "pq":
+            aug, seeds = self._wide_tables_pq()
+            return aug, seeds, None
+        if score != "exact":
+            raise ValueError(f"Unknown wide score: {score!r}")
+        aug, seeds = self._wide_tables()
+        return aug, seeds, self._wb[3]
 
     def search_batch_wide(
         self,
@@ -650,13 +861,14 @@ class HNSW:
         ``sorted_topk`` kernel. ``schedule`` = ((F1, T1), (F2, T2), ...)
         replaces the fixed frontier/steps. ``qchunk`` splits the batch on
         the host; None keeps max_frontier * padded batch within 2^20 (the
-        JAX package's memory envelope), 0 never splits. ``filter_ids``:
-        non-matching nodes navigate but never enter results."""
+        JAX package's memory envelope; 2^18 with the inline tables), 0 never
+        splits. ``score="pq"`` traverses on the PQ-decoded mirror (requires
+        enable_pq). ``filter_ids``: non-matching nodes navigate but never
+        enter results."""
         if not hasattr(self, "_wb_n_seeds"):
             raise ValueError("call enable_wide() first")
-        if score != "exact":
-            raise NotImplementedError(
-                f"search_batch_wide(score={score!r}): {_PQ_RP}")
+        if score == "pq" and self._pq is None:
+            raise ValueError("score='pq' requires enable_pq()")
         queries = np.asarray(queries, np.float32)
         b_orig, k_orig = queries.shape[0], k
         if self.size == 0 or self.graph is None:
@@ -666,7 +878,8 @@ class HNSW:
             fmax = frontier or max(16, min(((ef // 6 + 31) // 32) * 32, ef))
             if schedule is not None:
                 fmax = max(int(f) for f, _ in schedule)
-            budget = 1 << 20
+            inline = self._wb_inline and score == "exact"
+            budget = _INLINE_BUDGET if inline else 1 << 20
             qchunk = 0
             if fmax * _up2(b_orig) > budget:
                 qchunk = max(128, budget // max(1, fmax))
@@ -699,7 +912,7 @@ class HNSW:
         if not steps:
             steps = 10
         rerank_k = rerank_k or min(ef, max(4 * k, 64))
-        aug, seeds = self._wide_tables()
+        aug, seeds, inline_tabs = self._wide_scoring(score)
         q_dev = torch.from_numpy(queries).to(self.device)
         qa = WB.aug_queries(q_dev, self._wb_proj, aug.shape[1])
         nbr0 = self.graph.neighbors[:, : 2 * self.M]
@@ -718,7 +931,8 @@ class HNSW:
             nbr0, aug, self._emb, self._has_emb, seeds, q_dev, qa,
             ef=ef, F=frontier, T=steps, k=k, rerank_k=rerank_k,
             dedup_window=dedup_window, seen_mask=seen_mask,
-            score_chunks=score_chunks, merge_kernel=merge_kernel,
+            inline_tabs=inline_tabs, score_chunks=score_chunks,
+            merge_kernel=merge_kernel,
             schedule=(tuple(tuple(map(int, s)) for s in schedule)
                       if schedule else None),
             res_mask=res_mask, early_exit=early_exit)
@@ -846,7 +1060,8 @@ class HNSW:
         the upper block only of the rows with a level >= 1 (~1/M of them),
         ~3x fewer bytes than the dense table. Levels come from the host
         mirror. Trained state goes with it: the wide beam's projection and
-        seed count, and the PQ/RP arrays a loaded file carried."""
+        seed count, the RP projection and the PQ codebooks (and OPQ
+        rotation); codes and mirrors are rebuilt from the table at load."""
         if self.index_file is None or self.graph is None:
             return None
         levels = self._levels_host.copy()
@@ -870,7 +1085,12 @@ class HNSW:
             snap["wb_proj"] = self._wb_proj.cpu().numpy()
         if hasattr(self, "_wb_n_seeds"):
             snap["wb_n_seeds"] = np.asarray(self._wb_n_seeds)
-        snap.update(self._aux)
+        if self._rp_proj is not None:
+            snap["rp_proj"] = self._rp_proj.cpu().numpy()
+        if self._pq is not None and self._pq.codebooks is not None:
+            snap["pq_codebooks"] = self._pq.codebooks.cpu().numpy()
+            if self._pq.rotation is not None:
+                snap["pq_rotation"] = self._pq.rotation.cpu().numpy()
         return snap
 
     def write_snapshot(self, snap: dict) -> None:
@@ -878,8 +1098,7 @@ class HNSW:
         through a temporary file and ``os.replace``: a crash mid-write
         leaves the previous file whole."""
         self.index_file.parent.mkdir(parents=True, exist_ok=True)
-        f32_keys = ("wb_proj",) + _CARRIED_AUX
-        arrays = {k: (np.asarray(v, np.float32) if k in f32_keys else v)
+        arrays = {k: (np.asarray(v, np.float32) if k in _AUX_KEYS else v)
                   for k, v in snap.items()}
         tmp = self.index_file.with_name(self.index_file.name + ".tmp.npz")
         np.savez(tmp, **arrays)
@@ -921,8 +1140,8 @@ class HNSW:
             levels = np.asarray(z["levels"], np.int32)
             entry, entry_level = int(z["entry"]), int(z["entry_level"])
             id_of_slot = np.asarray(z["id_of_slot"], np.int64)
-            aux = {k: np.asarray(z[k]) for k in
-                   ("wb_proj", "wb_n_seeds") + _CARRIED_AUX if k in z}
+            aux = {k: np.asarray(z[k]) for k in ("wb_n_seeds",) + _AUX_KEYS
+                   if k in z}
 
         dev = self.device
         self.graph = K.Graph(neighbors=torch.from_numpy(neighbors).to(dev),
@@ -946,8 +1165,17 @@ class HNSW:
             self._wb_proj = (torch.from_numpy(aux["wb_proj"]).to(dev)
                              if "wb_proj" in aux else None)
             self._wb_n_seeds = int(aux.get("wb_n_seeds", 4096))
-            self._wb = None
-        self._aux = {k: aux[k] for k in _CARRIED_AUX if k in aux}
+            self._wb = self._wb_pq = None
+        # trained state without retraining: mirrors and codes rebuild from
+        # the hydrated table on first use
+        if "rp_proj" in aux:
+            self._rp_proj = torch.from_numpy(
+                aux["rp_proj"].astype(np.float32)).to(dev)
+            self._rp = None
+        if "pq_codebooks" in aux and self._dim is not None:
+            self._pq = PQCodec.from_arrays(aux["pq_codebooks"],
+                                           aux.get("pq_rotation"), device=dev)
+            self._pq_codes = None
         self.recover_unlinked()
 
     def recover_unlinked(self) -> int:

@@ -5,7 +5,10 @@ The graph is one ``int32[capacity, NCOLS]`` neighbor table, -1 padded:
 level-0 edges occupy columns [0, 2M), level-l >= 1 edges [M(l+1), M(l+2)).
 Search is a best-first beam: each step pops the nearest unexpanded
 candidate(s), gathers their neighbor rows, scores the unvisited neighbors
-with exact f32 distances, and merges them into an ef-wide pool.
+with exact f32 distances, and merges them into an ef-wide pool. The PQ
+and projected (RP) searches run the same beam under another score: an ADC
+LUT sum over the node's codes, or a bf16 PCA mirror's dot; their ef
+candidates are reranked exactly.
 
 JAX ``vmap``s a ``while_loop`` per query. Here the queries run together as
 one batched loop over [B, ...] tensors: each query carries its own
@@ -302,6 +305,17 @@ def beam_layer_unified(
     return pool_d, torch.where(pool_d < BIG_THRESH, pool_s, -1)
 
 
+def _descend(graph: Graph, score, b: int, dev, M: int, l_max: int):
+    """Every query's greedy descent from the entry point to level 1 under
+    ``score``: (slot int32[B], distance f32[B], active bool[B], False on
+    an empty graph)."""
+    entry = torch.full((b,), graph.entry, dtype=torch.int32, device=dev)
+    entry_d = score(entry[:, None])[:, 0]
+    cur, cur_d = greedy_descent(graph, score, entry, entry_d, 1, M, l_max)
+    active = torch.full((b,), graph.entry >= 0, dtype=torch.bool, device=dev)
+    return cur, cur_d, active
+
+
 def search_batch(
     graph: Graph,
     emb: torch.Tensor,          # f32|bf16[capacity, d] traversal table
@@ -321,8 +335,6 @@ def search_batch(
     upper levels, then the level-0 beam (two pools under a filter).
     Returns (dists_sq f32[B, k], slots int32[B, k]) ascending, (BIG, -1)
     padded."""
-    b = queries.shape[0]
-    dev = queries.device
     capacity = emb.shape[0]
     rm = filter_mask if use_filter else None
 
@@ -332,10 +344,8 @@ def search_batch(
     def res_ok(idx):
         return has_emb[idx.clamp_min(0).long()]
 
-    entry = torch.full((b,), graph.entry, dtype=torch.int32, device=dev)
-    entry_d = score(entry[:, None])[:, 0]
-    cur, cur_d = greedy_descent(graph, score, entry, entry_d, 1, M, l_max)
-    active = torch.full((b,), graph.entry >= 0, dtype=torch.bool, device=dev)
+    cur, cur_d, active = _descend(graph, score, queries.shape[0],
+                                  queries.device, M, l_max)
     if rm is None:
         rd, rs = beam_layer_unified(graph, score, capacity, cur, cur_d, active,
                                     level=0, ef=ef, M=M, max_steps=max_steps,
@@ -344,6 +354,95 @@ def search_batch(
         rd, rs = beam_layer(graph, score, capacity, res_ok, cur, cur_d, active,
                             res_mask=rm, level=0, ef=ef, M=M,
                             max_steps=max_steps, pool=pool, expand=expand)
+    return masked_top_k_smallest(rd, rs, k)
+
+
+def _beam_search_scored(graph: Graph, score, capacity: int, b: int, dev,
+                        M: int, l_max: int, ef: int, max_steps: int,
+                        expand: int):
+    """Greedy descent and the level-0 beam under ``score`` (the unfiltered
+    route of :func:`search_batch`): the ef-wide pool (d, slots)."""
+    cur, cur_d, active = _descend(graph, score, b, dev, M, l_max)
+    return beam_layer_unified(graph, score, capacity, cur, cur_d, active,
+                              level=0, ef=ef, M=M, max_steps=max_steps,
+                              expand=expand)
+
+
+def search_batch_pq(
+    graph: Graph,
+    codes: torch.Tensor,        # int32|uint8[capacity, m] PQ codes
+    codebooks: torch.Tensor,    # f32[m, ksub, subdim]
+    emb: torch.Tensor,          # f32[capacity, d] (exact rerank only)
+    has_emb: torch.Tensor,      # bool[capacity]
+    queries: torch.Tensor,      # f32[B, d]
+    queries_rot: torch.Tensor,  # f32[B, d] in code space (OPQ)
+    M: int,
+    l_max: int,
+    ef: int,
+    k: int,
+    max_steps: int,
+    expand: int = 1,
+    rerank: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HNSW-over-PQ search: the beam scores a node by its asymmetric PQ
+    distance, a row of m codes looked up in the query's LUT (an f32 sum)
+    instead of a d-wide row. With ``rerank`` the ef candidates are rescored
+    exactly in f32 before the top-k cut; without it the ADC estimates are
+    returned. Returns (d_sq f32[B, k], slots int32[B, k])."""
+    from vector_db_tpu_torch.index.pq import _adc_lut
+
+    b = queries.shape[0]
+    m, ksub = codebooks.shape[:2]
+    lut = _adc_lut(queries_rot, codebooks).reshape(b, m * ksub)
+    offs = torch.arange(m, device=lut.device) * ksub
+
+    def score(idx):
+        safe = idx.clamp_min(0).long()
+        c = codes[safe].long() + offs                      # [B, K, m]
+        d = torch.gather(lut, 1, c.reshape(b, -1)).reshape(c.shape).sum(-1)
+        return torch.where((idx >= 0) & has_emb[safe], d, BIG)
+
+    rd, rs = _beam_search_scored(graph, score, emb.shape[0], b,
+                                 queries.device, M, l_max, ef, max_steps,
+                                 expand)
+    if rerank:
+        rd = gather_l2_sq(queries, emb, rs, has_emb[rs.clamp_min(0).long()])
+    return masked_top_k_smallest(rd, rs, k)
+
+
+def search_batch_rp(
+    graph: Graph,
+    rp: torch.Tensor,           # bf16[capacity, dp] PCA-projected mirror
+    xsq: torch.Tensor,          # f32[capacity] full-space ||x||^2
+    emb: torch.Tensor,          # f32[capacity, d] (exact rerank only)
+    has_emb: torch.Tensor,      # bool[capacity]
+    queries: torch.Tensor,      # f32[B, d]
+    queries_proj: torch.Tensor,  # f32[B, dp] projected queries
+    M: int,
+    l_max: int,
+    ef: int,
+    k: int,
+    max_steps: int,
+    expand: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Projected-traversal search: the beam scores ``||x||^2 - 2 q^ . x^``
+    from the bf16 PCA mirror (the distance estimate less the query's
+    constant); the ef candidates are rescored exactly in f32 before the
+    top-k cut. The bf16 x bf16 products are exact in f32 and summed in
+    f32. Returns (d_sq f32[B, k], slots int32[B, k])."""
+    b = queries.shape[0]
+    qp = queries_proj.to(rp.dtype).float()
+
+    def score(idx):
+        safe = idx.clamp_min(0).long()
+        dots = torch.bmm(rp[safe].float(), qp[:, :, None])[..., 0]
+        d = xsq[safe] - 2.0 * dots
+        return torch.where((idx >= 0) & has_emb[safe], d, BIG)
+
+    rd, rs = _beam_search_scored(graph, score, emb.shape[0], b,
+                                 queries.device, M, l_max, ef, max_steps,
+                                 expand)
+    rd = gather_l2_sq(queries, emb, rs, has_emb[rs.clamp_min(0).long()])
     return masked_top_k_smallest(rd, rs, k)
 
 

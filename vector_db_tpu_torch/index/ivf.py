@@ -1,19 +1,22 @@
-"""IVF index with residual IVF-PQ on a torch device (port of
-vector_db_tpu/index/ivf.py).
+"""IVF index with residual IVF-PQ and residual projection on a torch
+device (port of vector_db_tpu/index/ivf.py).
 
 Same API, validation errors, host inverted lists and npz index file as the
 JAX ``IvfIndex``: ``build_index`` / ``build_arrays`` (k-means on a
 subsample, tiled assignment, capacity-bounded cells, ``spill``), ``add``,
 ``delete``, ``search``, ``enable_pq`` (residual IVFADC, optional OPQ),
-``search_batch`` in the flat mode and the PQ probe mode, cluster stats, and
-``save_index`` / ``load_index``. ``load_state`` adopts a JAX index's state.
+``enable_rp`` (residual projection: a PCA of the coarse residuals),
+``search_batch`` in the flat, PQ and RP modes, cluster stats, and
+``save_index`` / ``load_index`` (with the trained PQ and RP state).
+``load_state`` adopts a JAX index's state.
 
 On the device: the corpus table (``DeviceVectorStore``), the centroids, the
-``-1``-padded ``[k, L]`` slot table and the cell-contiguous uint8
-``[k, L, m]`` PQ code blocks. Coarse distances are true f32 (TF32 raises),
-probe selection is ``torch.topk``, and the exact rerank is elementwise f32.
-The JAX ``lax.map`` over query blocks is a Python loop over blocks; the
-block size bounds the gathered per-block tensors.
+``-1``-padded ``[k, L]`` slot table, the cell-contiguous uint8 ``[k, L, m]``
+PQ code blocks and the bf16 ``[k, L, dp]`` RP residual blocks. Coarse
+distances are true f32 (TF32 raises), probe selection is ``torch.topk``,
+and the exact rerank is elementwise f32. The JAX ``lax.map`` over query
+blocks is a Python loop over blocks; the block size bounds the gathered
+per-block tensors.
 
 PQ probe scoring (``adc``): ``"pallas"`` (default), ``"onehot"`` and
 ``"onehot8"`` launch the ``adc_probe_scores`` CUDA kernel on a CUDA device
@@ -22,13 +25,24 @@ and int8 rounding is not reproduced: the kernel sums in f32). ``"gather"``
 runs the kernel's plain version. Because every formulation sums in f32,
 un-reranked search needs no switch to ``"gather"`` as the JAX package makes.
 
-Not ported yet (ROADMAP queue A5.2): the RP modes (``enable_rp``,
-``search_batch(rp=True)``) and the full-scan PQ path for ``n_probe >= k``;
-each raises ``NotImplementedError``. An index file's RP state is not loaded.
+At ``n_probe >= k`` both approximate modes scan every cell for the whole
+batch. The PQ scan is the ``adc_topk`` kernel over the flattened cell
+blocks, its residual scalars and coarse terms as the kernel's row and group
+terms (the JAX package's one-hot MXU contraction computes the same LUT
+sum); the RP scan is the unpadded bf16 mirror on ``l2_topk`` (weakly
+clustered corpora) or the cell-block scan in plain torch. The TPU's
+``approx_min_k`` becomes exact selection, ties to the lower position
+(:func:`ops.topk.smallest_stable`). bf16 operands are multiplied in f32
+(exact products), summed in f32. Each full scan's ``fetch`` is bounded by
+its kernel's lists on a CUDA device: 2048 for the PQ scan (``adc_topk``),
+256 for the flat RP route (``l2_topk``); a larger fetch raises there (the
+default ``max(4 * top_k, 100)`` passes them up to top_k 512 and 64), and
+runs the kernels' plain versions on the CPU.
 """
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -46,19 +60,33 @@ from vector_db_tpu_torch.ops.cuda.adc_probe import (
     adc_probe_plain,
     adc_probe_scores,
 )
-from vector_db_tpu_torch.ops.distance import BIG, gather_l2_sq, l2_sq_pairwise
+from vector_db_tpu_torch.ops.cuda.adc_scan import (
+    MAX_K as ADC_MAX_K,
+    adc_topk,
+    adc_topk_plain,
+)
+from vector_db_tpu_torch.ops.cuda.l2_topk import MAX_K as L2_MAX_K
+from vector_db_tpu_torch.ops.distance import (
+    BIG,
+    BIG_THRESH,
+    gather_l2_sq,
+    l2_sq_pairwise,
+    squared_norms,
+)
+from vector_db_tpu_torch.ops.exact import approx_search_tiled, rescore_exact
 from vector_db_tpu_torch.ops.kmeans import assign_tiled, kmeans
-from vector_db_tpu_torch.ops.topk import masked_top_k_smallest
+from vector_db_tpu_torch.ops.topk import (
+    later_copies,
+    masked_top_k_smallest,
+    smallest_stable,
+)
 from vector_db_tpu_torch.storage import InMemoryNodeStorage, NodeStorage
 from vector_db_tpu_torch.storage.device_store import DeviceVectorStore
 from vector_db_tpu_torch.types import Node
 
 ADC_MODES = ("pallas", "onehot", "onehot8", "gather")
 _PANEL = 1 << 26   # bound (elements) on a query block's gathered tensors
-_RP = ("IVF residual projection (enable_rp, search_batch(rp=True)) is not "
-       "ported yet: ROADMAP queue A5.2")
-_PQ_SCAN = ("the full-scan IVF-PQ path (n_probe >= k, _ivf_pq_scan_cells) "
-            "is not ported yet: ROADMAP queue A5.2; use n_probe < k")
+_CELL_CHUNK = 256   # cells per pass of the RP block rebuild
 
 
 def _top_k(d: torch.Tensor, ids: torch.Tensor, k: int):
@@ -174,6 +202,267 @@ def _ivf_pq_probe_cells(
     return torch.cat(out_d), torch.cat(out_i)
 
 
+def _f32_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in true f32 (raises where TF32 could enter). bf16 operands
+    widen first: their products are exact in f32, as the JAX package's
+    bf16 x bf16 -> f32 contractions."""
+    require_f32_matmul(a)
+    return a.float() @ b.float()
+
+
+def _rerank(queries, emb, sv, top_k, dedup):
+    """The exact-rerank tail of the RP/PQ scans: (optionally) void the later
+    copies of a slot among each row's candidate slots ``sv``, rescore
+    exactly in f32, cut the top k."""
+    if dedup:
+        sv = torch.where(later_copies(sv) & (sv >= 0), -1, sv)
+    fd = gather_l2_sq(queries, emb, sv, sv >= 0)
+    return masked_top_k_smallest(fd, sv, top_k)
+
+
+def _ivf_rp_probe_cells(
+    centroids: torch.Tensor,   # f32[k, d]
+    mu_proj: torch.Tensor,     # f32[dp] projected global data mean
+    cell_slots: torch.Tensor,  # int32[k, L] slot ids, -1 padded
+    cell_rp: torch.Tensor,     # bf16[k, L, dp] projected residuals
+    cell_xsq: torch.Tensor,    # f32[k, L] stored scalars
+    emb: torch.Tensor,         # f32[capacity, d] (exact rerank source)
+    has_emb: torch.Tensor,     # bool[capacity]
+    queries: torch.Tensor,     # f32[B, d]
+    proj: torch.Tensor,        # f32[d, dp] orthonormal projection
+    n_probe: int,
+    top_k: int,
+    fetch: int,
+    rerank: bool,
+    dedup: bool,
+    qblock: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Residual-projection probe: each probed cell's [L, dp] residual block
+    scored against the mu-centred projected query,
+
+        d(q, x) ~ (||q - c||^2 - ||c||^2) - 2 (q^ - mu^) . r^ + t,
+
+    the top ``fetch`` reranked exactly (or the estimates' top k returned
+    un-reranked). The block product widens bf16 to f32 (exact products, f32
+    sums). Queries run ``qblock`` at a time and probes one after another, so
+    a step holds one [qblock, L, dp] block."""
+    b = queries.shape[0]
+    max_l = cell_slots.shape[1]
+    p_total = n_probe * max_l
+    fetch = max(top_k, min(fetch, p_total))
+    cd, probe = _probe(queries, centroids, n_probe)
+    qp = _f32_dot(queries, proj)
+    csq = squared_norms(centroids)[probe]
+    corr = torch.gather(cd, 1, probe) - csq                 # [B, n_probe]
+    qr = (qp - mu_proj[None, :]).to(torch.bfloat16).float()
+    out_d, out_i = [], []
+    for s in range(0, b, qblock):
+        pb, cb, qb = probe[s:s + qblock], corr[s:s + qblock], qr[s:s + qblock]
+        nq = pb.shape[0]
+        scores = torch.empty((nq, n_probe, max_l), device=queries.device)
+        slots = cell_slots[pb]                              # [nq, n_probe, L]
+        for pi in range(n_probe):
+            cells = pb[:, pi].long()
+            dots = torch.bmm(cell_rp[cells].float(), qb[:, :, None])[..., 0]
+            score = cb[:, pi, None] - 2.0 * dots + cell_xsq[cells]
+            sl = slots[:, pi]
+            ok = (sl >= 0) & has_emb[sl.clamp_min(0).long()]
+            scores[:, pi] = torch.where(ok, score, BIG)
+        d_all = scores.reshape(nq, p_total)
+        s_all = slots.reshape(nq, p_total)
+        if p_total < fetch:  # tiny-corpus guard
+            pad = fetch - p_total
+            d_all = torch.cat([d_all, d_all.new_full((nq, pad), BIG)], 1)
+            s_all = torch.cat([s_all, s_all.new_full((nq, pad), -1)], 1)
+        if not rerank:
+            td, ti = masked_top_k_smallest(d_all, s_all, top_k)
+        else:
+            nd, pos = smallest_stable(d_all, fetch)
+            fi = torch.where(nd >= BIG_THRESH, -1, torch.gather(s_all, 1, pos))
+            td, ti = _rerank(queries[s:s + qblock], emb, fi, top_k, dedup)
+        out_d.append(td)
+        out_i.append(ti)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def _ivf_rp_scan_cells(
+    centroids: torch.Tensor,   # f32[k, d]
+    cell_slots: torch.Tensor,  # int32[k, L] slot ids, -1 padded
+    cell_rp: torch.Tensor,     # bf16[k, L, dp] residual blocks
+    cell_t: torch.Tensor,      # f32[k, L] stored scalars
+    emb: torch.Tensor,         # f32[capacity, d] (exact rerank source)
+    has_emb: torch.Tensor,     # bool[capacity]
+    queries: torch.Tensor,     # f32[B, d]
+    proj: torch.Tensor,        # f32[d, dp]
+    mu_proj: torch.Tensor,     # f32[dp]
+    top_k: int,
+    fetch: int,
+    rerank: bool,
+    dedup: bool,
+    ctile: int = 64,
+    qblock: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-scan residual projection: every cell for the whole batch, one
+    tile of ``ctile`` cells at a time (one f32 product of the widened
+    [ctile * L, dp] block against ``qblock`` queries),
+
+        score[b, c, l] = (||q||^2 - 2 q.c) - 2 (q^ - mu^) . r^[c, l] + t,
+
+    keeping per tile the best ``min(max(top_k, fetch // min(4, tiles)),
+    ctile * L)`` (the JAX package's per-tile cap, which makes the
+    candidate set depend on ``ctile``) merged into a running top-``fetch``,
+    then the exact rerank."""
+    b = queries.shape[0]
+    k_cells, max_l = cell_slots.shape
+    dp = cell_rp.shape[-1]
+    assert k_cells % ctile == 0, "k_cells must be a multiple of ctile"
+    p_tile = ctile * max_l
+    n_tiles = k_cells // ctile
+    fetch = max(top_k, min(fetch, k_cells * max_l))
+    per_tile = min(max(top_k, fetch // min(4, n_tiles)), p_tile)
+    corr = (squared_norms(queries)[:, None]
+            - 2.0 * _f32_dot(queries, centroids.T))           # [B, k]
+    qp = (_f32_dot(queries, proj) - mu_proj[None, :]).to(
+        torch.bfloat16).float()
+    slot_ok = (cell_slots >= 0) & has_emb[cell_slots.clamp_min(0).long()]
+    best_d = torch.full((b, fetch), BIG, device=queries.device)
+    best_i = torch.full((b, fetch), -1, dtype=torch.int32,
+                        device=queries.device)
+    for ti in range(n_tiles):
+        c0 = ti * ctile
+        blk = cell_rp[c0:c0 + ctile].reshape(p_tile, dp).float()
+        t = cell_t[c0:c0 + ctile].reshape(p_tile)
+        slots = cell_slots[c0:c0 + ctile].reshape(p_tile)
+        ok = slot_ok[c0:c0 + ctile].reshape(p_tile)
+        for s in range(0, b, qblock):
+            dots = _f32_dot(qp[s:s + qblock], blk.T)          # [nq, p_tile]
+            score = (corr[s:s + qblock, c0:c0 + ctile].repeat_interleave(
+                max_l, dim=1) - 2.0 * dots) + t[None]
+            score = torch.where(ok[None], score, BIG)
+            nd, pos = smallest_stable(score, per_tile)
+            si = torch.where(nd >= BIG_THRESH, -1, slots[pos])
+            cat_d = torch.cat([best_d[s:s + qblock], nd], 1)
+            cat_i = torch.cat([best_i[s:s + qblock], si], 1)
+            md, mpos = smallest_stable(cat_d, fetch)
+            best_d[s:s + qblock] = md
+            best_i[s:s + qblock] = torch.where(
+                md >= BIG, -1, torch.gather(cat_i, 1, mpos))
+    if not rerank:
+        return best_d[:, :top_k], best_i[:, :top_k]
+    return _rerank(queries, emb, best_i, top_k, dedup)
+
+
+def _ivf_pq_scan_cells(
+    centroids: torch.Tensor,    # f32[k, d]
+    cell_slots: torch.Tensor,   # int32[k, L] slot ids, -1 padded
+    cell_codes: torch.Tensor,   # uint8[k, L, m] PQ codes, cell-contiguous
+    cell_s: torch.Tensor,       # f32[k, L] residual correction scalars
+    codebooks: torch.Tensor,    # f32[m, ksub, subdim]
+    emb: torch.Tensor,          # f32[capacity, d] (exact rerank source)
+    has_emb: torch.Tensor,      # bool[capacity]
+    queries: torch.Tensor,      # f32[B, d]
+    queries_rot: torch.Tensor,  # f32[B, d] in code space (OPQ)
+    top_k: int,
+    fetch: int,
+    rerank: bool,
+    residual: bool,
+    dedup: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-scan ADC over every cell for the whole batch: the ``adc_topk``
+    kernel over the cell blocks flattened to [k * L, m] rows, each row's
+    residual scalar as its row term and ``||q - c||^2 - ||q_rot||^2`` as the
+    (query, cell) group term of the cell's L rows; one exact top-``fetch``
+    (the JAX package keeps ``min(fetch, tile)`` a tile, which is the same
+    set), mapped back through the slot table, then the exact rerank.
+    ``fetch`` above the kernel's lists (``ADC_MAX_K``, 2048) raises on a
+    CUDA device and takes the kernel's plain version on the CPU."""
+    k_cells, max_l, m = cell_codes.shape
+    fetch = max(top_k, min(fetch, k_cells * max_l))
+    lut = _adc_lut(queries_rot, codebooks)                  # [B, m, ksub]
+    corr = None
+    if residual:
+        cd = l2_sq_pairwise(queries, centroids)
+        corr = cd - (queries_rot * queries_rot).sum(-1)[:, None]   # [B, k]
+    slots = cell_slots.reshape(-1)
+    valid = (slots >= 0) & has_emb[slots.clamp_min(0).long()]
+    _check_fetch("the PQ full scan (adc_topk)", fetch, ADC_MAX_K, lut)
+    scan = adc_topk if fetch <= ADC_MAX_K else adc_topk_plain  # CPU only
+    fd, pos = scan(lut, cell_codes.reshape(-1, m), valid, fetch,
+                   row_bias=cell_s.reshape(-1) if residual else None,
+                   group_bias=corr, group=max_l)
+    fi = torch.where(pos >= 0, slots[pos.clamp_min(0).long()], -1)
+    if not rerank:
+        return fd[:, :top_k], fi[:, :top_k]
+    return _rerank(queries, emb, fi, top_k, dedup)
+
+
+def _check_fetch(route: str, fetch: int, limit: int,
+                 table: torch.Tensor) -> None:
+    """On a CUDA device a full scan runs its kernel, whose lists hold at
+    most ``limit`` candidates a query: a larger ``fetch`` raises there."""
+    if fetch > limit and table.device.type == "cuda":
+        raise ValueError(f"{route} keeps at most {limit} candidates a query "
+                         f"on a CUDA device, got fetch={fetch}: pass "
+                         f"fetch <= {limit}")
+
+
+def _rp_flat_search(
+    queries: torch.Tensor,   # f32[B, d]
+    proj: torch.Tensor,      # f32[d, dp]
+    mu: torch.Tensor,        # f32[dp]
+    flat: torch.Tensor,      # bf16[capacity, dp] centred mirror
+    u: torch.Tensor,         # f32[capacity] stored scalars
+    valid: torch.Tensor,     # bool[capacity]
+    emb: torch.Tensor,       # f32[capacity, d] (exact rerank source)
+    top_k: int,
+    fetch: int,
+    rerank: bool,
+    tile: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat projected scan: the centred mirror through
+    ``ops.exact.approx_search_tiled`` (the ``l2_topk`` kernel over a bf16
+    table) with ``u`` as its norms, then the exact rerank; un-reranked, the
+    estimates plus the per-query constant. ``fetch`` above the kernel's
+    lists (256) raises on a CUDA device; on the CPU the plain scan runs."""
+    _check_fetch("the flat RP route (l2_topk)", fetch, L2_MAX_K, flat)
+    qp = _f32_dot(queries, proj)
+    fd, fi = approx_search_tiled(qp - mu[None, :], flat, valid, fetch,
+                                 tile=tile, x_sq=u)
+    if rerank:
+        d_sq, slots = rescore_exact(queries, emb, fi)
+        return d_sq[:, :top_k], slots[:, :top_k]
+    off = (squared_norms(queries) - squared_norms(qp)
+           + (mu * mu).sum())
+    return fd[:, :top_k] + off[:, None], fi[:, :top_k]
+
+
+def _build_rp_blocks(
+    table: torch.Tensor,      # int32[k, L] slot ids, -1 padded
+    rp: torch.Tensor,         # f32[capacity, dp] per-slot x^
+    xsq: torch.Tensor,        # f32[capacity] full-space ||x||^2
+    cent_proj: torch.Tensor,  # f32[k, dp]
+    mu_proj: torch.Tensor,    # f32[dp]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RP cell blocks: residuals r^ = x^ - c^ (bf16 only after the
+    subtraction) and stored scalars t = ||x||^2 - 2 mu^ . r^, zero on
+    padding slots; ``_CELL_CHUNK`` cells at a time."""
+    k_cells, max_l = table.shape
+    dp = rp.shape[1]
+    res16 = torch.empty((k_cells, max_l, dp), dtype=torch.bfloat16,
+                        device=rp.device)
+    t = torch.empty((k_cells, max_l), device=rp.device)
+    for c in range(0, k_cells, _CELL_CHUNK):
+        tab = table[c:c + _CELL_CHUNK]
+        safe = tab.clamp_min(0).long()
+        ok = tab >= 0
+        res = rp[safe] - cent_proj[c:c + _CELL_CHUNK, None, :]
+        res = torch.where(ok[..., None], res, 0.0)
+        tc = xsq[safe] - 2.0 * _f32_dot(res, mu_proj[:, None])[..., 0]
+        t[c:c + _CELL_CHUNK] = torch.where(ok, tc, 0.0)
+        res16[c:c + _CELL_CHUNK] = res.to(torch.bfloat16)
+    return res16, t
+
+
 class IvfIndex:
     def __init__(
         self,
@@ -206,6 +495,19 @@ class IvfIndex:
         self._pq_residual = False
         self._codes_np: Optional[np.ndarray] = None  # uint8[capacity, m]
         self._sx_np: Optional[np.ndarray] = None     # f32[capacity]
+        # residual projection (enable_rp): the PCA projection, the per-slot
+        # x^ = x @ proj and ||x||^2, the cell blocks built from them, and the
+        # flat scan's centred mirror (None until first used after a change)
+        self._rp_proj: Optional[np.ndarray] = None   # f32[dim, dp]
+        self._rp_proj_dev: Optional[torch.Tensor] = None
+        self._rp_dev: Optional[torch.Tensor] = None  # f32[capacity, dp]
+        self._rp_xsq_dev: Optional[torch.Tensor] = None
+        self._rp_mu_dev: Optional[torch.Tensor] = None
+        self._cent_proj_dev: Optional[torch.Tensor] = None
+        self._cells_rp_dev: Optional[torch.Tensor] = None
+        self._cells_xsq_dev: Optional[torch.Tensor] = None
+        self._rp_flat = None    # (centred bf16 mirror, u)
+        self._rp_res_ratio = 1.0
 
         self._store = DeviceVectorStore(capacity=256, device=self.device)
 
@@ -285,6 +587,12 @@ class IvfIndex:
         else:
             self._cells_codes_dev = None
             self._cells_s_dev = None
+        if self._rp_dev is not None:
+            self._cells_rp_dev, self._cells_xsq_dev = _build_rp_blocks(
+                self._lists_dev, self._rp_dev, self._rp_xsq_dev,
+                self._cent_proj_dev, self._rp_mu_dev)
+        else:
+            self._cells_rp_dev = self._cells_xsq_dev = None
         self._lists_dirty = False
 
     def _ensure_codes_capacity(self) -> Optional[np.ndarray]:
@@ -302,6 +610,43 @@ class IvfIndex:
                     [self._sx_np, np.zeros((grow,), np.float32)]
                 )
         return codes_np
+
+    def _ensure_rp_capacity(self) -> None:
+        """Grow the per-slot RP rows with the store (new rows zero)."""
+        rp = self._rp_dev
+        if rp is not None and rp.shape[0] < self._capacity:
+            grow = self._capacity - rp.shape[0]
+            self._rp_dev = torch.cat([rp, rp.new_zeros((grow, rp.shape[1]))])
+            self._rp_xsq_dev = torch.cat(
+                [self._rp_xsq_dev, self._rp_xsq_dev.new_zeros((grow,))])
+
+    def _rp_flat_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The flat scan's mirror: ((x^ - mu^) bf16[capacity, dp],
+        u = ||x||^2 - 2 mu^ . x^ f32[capacity]), rebuilt after the RP rows
+        change (``add``, ``enable_rp``, a load). Ranking identity:
+        ||q - x||^2 ~ ||q^ - mu^||^2 - 2 (q^ - mu^).(x^ - mu^) + u + const(q),
+        so ``approx_search_tiled`` runs it with u as the norms."""
+        if self._rp_flat is None:
+            mu = self._rp_mu_dev
+            self._rp_flat = (
+                (self._rp_dev - mu[None, :]).to(torch.bfloat16),
+                self._rp_xsq_dev - 2.0 * _f32_dot(self._rp_dev,
+                                                  mu[:, None])[:, 0])
+        return self._rp_flat
+
+    def _set_rp(self, proj: np.ndarray, mu: np.ndarray) -> None:
+        """Install a projection and the projected mean, and project the
+        table: x^ (f32) and the full-space ||x||^2 per slot."""
+        self._rp_proj = np.array(proj, np.float32)
+        self._rp_proj_dev = torch.from_numpy(self._rp_proj).to(self.device)
+        self._cent_proj_dev = torch.from_numpy(
+            self.centroids @ self._rp_proj).to(self.device)
+        self._rp_mu_dev = torch.from_numpy(np.array(mu, np.float32)).to(
+            self.device)
+        self._rp_dev = _f32_dot(self._emb, self._rp_proj_dev)
+        self._rp_xsq_dev = squared_norms(self._emb)
+        self._rp_flat = None
+        self._lists_dirty = True    # the RP cell blocks rebuild
 
     def _device_lists(self) -> torch.Tensor:
         if self._lists_dirty or self._lists_dev is None:
@@ -500,6 +845,9 @@ class IvfIndex:
         codes: Optional[np.ndarray] = None,
         sx: Optional[np.ndarray] = None,
         spill: int = 1,
+        rp_proj: Optional[np.ndarray] = None,
+        rp_mu: Optional[np.ndarray] = None,
+        rp_res_ratio: float = 1.0,
     ) -> None:
         """Adopt another index's state given as numpy arrays, e.g. a JAX
         ``IvfIndex``'s: the table, valid mask and id map
@@ -507,7 +855,10 @@ class IvfIndex:
         ``idx._store.export_id_map()``), ``centroids``, ``inverted_lists``,
         and with PQ enabled the ``codebooks``, OPQ ``rotation``, residual
         flag, codes ``_codes_np`` and residual scalars ``_sx_np``; ``spill``
-        is ``_spill``. Without ``codes`` the table is re-encoded."""
+        is ``_spill``. Without ``codes`` the table is re-encoded. With RP
+        enabled: ``rp_proj`` (``_rp_proj``), ``rp_mu``
+        (``np.asarray(_rp_mu_dev)``) and ``_rp_res_ratio``; the projected
+        rows are recomputed from the table."""
         self._store = DeviceVectorStore.from_arrays(
             emb, valid, id_of_slot, device=self.device)
         self._set_centroids(centroids)
@@ -520,6 +871,11 @@ class IvfIndex:
         self._lists_dirty = True
         self._pq = None
         self._codes_np = self._sx_np = None
+        self._rp_proj = self._rp_proj_dev = self._rp_dev = None
+        self._rp_flat = None
+        if rp_proj is not None:
+            self._set_rp(rp_proj, rp_mu)
+            self._rp_res_ratio = float(rp_res_ratio)
         if codebooks is None:
             return
         self._pq = PQCodec.from_arrays(codebooks, rotation,
@@ -553,6 +909,12 @@ class IvfIndex:
         nearest = int(np.argmin(distances))
         for c in np.argsort(distances)[:max(1, self._spill)]:
             self.inverted_lists[int(c)].append(node.id)
+        if self._rp_dev is not None:
+            self._ensure_rp_capacity()
+            row = torch.from_numpy(embedding).to(self.device)
+            self._rp_dev[slot] = _f32_dot(row[None, :], self._rp_proj_dev)[0]
+            self._rp_xsq_dev[slot] = (row * row).sum()
+            self._rp_flat = None
         if self._ensure_codes_capacity() is not None:
             # keep the PQ code row current so the cell rebuild stays valid
             vec = embedding[None, :]
@@ -664,8 +1026,47 @@ class IvfIndex:
                        opq_iters=opq_iters)
         self._reencode_pq(residual, slot_cell)
 
-    def enable_rp(self, *args, **kwargs) -> None:
-        raise NotImplementedError(_RP)
+    def enable_rp(self, dims: int = 128, seed: int = 0,
+                  train_sample: int = 131072) -> None:
+        """Attach residual-projection scoring: PCA of the coarse residuals
+        ``x - c_cell`` (a covariance of up to ``train_sample`` live rows)
+        down to ``dims`` directions; the projected table x^ = x @ R stays
+        f32 per slot, with the full-space ||x||^2, and the cell blocks keep
+        the bf16 residuals r^ = x^ - c^. x^ does not depend on the cell, so
+        spilled copies share it (``build_arrays(spill > 1)`` works, unlike
+        residual PQ). ``_rp_res_ratio`` (residual over deviation energy of
+        the sample) picks the full-scan route in ``search_batch``."""
+        if self.centroids is None:
+            raise ValueError("Index must be built before enabling RP")
+        dims = int(min(dims, self._dim))
+        if dims <= 0:
+            raise ValueError("dims must be positive")
+        slot_cell = self._slot_cell_table()
+        live = self._has_emb.cpu().numpy() & (slot_cell >= 0)
+        rows = np.flatnonzero(live)
+        if rows.size == 0:
+            raise ValueError("no live vectors to train the projection")
+        if rows.shape[0] > train_sample:
+            rows = np.random.default_rng(seed).choice(
+                rows, train_sample, replace=False)
+        rows_dev = torch.from_numpy(rows).to(self.device)
+        sample = self._emb[rows_dev]
+        res = sample - self._centroids_dev[
+            torch.from_numpy(slot_cell[rows]).to(self.device).long()]
+        cov = _f32_dot(res.T, res).cpu().numpy() / max(1, rows.shape[0])
+        _, v = np.linalg.eigh(cov.astype(np.float64))
+        proj = v[:, ::-1][:, :dims].astype(np.float32)       # [dim, dims]
+        mean = sample.mean(0)
+        mu = _f32_dot(mean[None, :], torch.from_numpy(proj).to(
+            self.device))[0]
+        self._set_rp(proj, mu.cpu().numpy())
+        # cell-vs-flat heuristic: how much of the deviation energy the
+        # coarse centroids absorb (strongly clustered corpora keep the
+        # padded cell-block scan, weakly clustered ones the flat mirror)
+        res_e = float((res * res).sum(-1).mean())
+        dev = sample - mean
+        dev_e = float((dev * dev).sum(-1).mean())
+        self._rp_res_ratio = res_e / max(dev_e, 1e-30)
 
     def search_batch(
         self, queries: np.ndarray, n_probe: int, top_k: int,
@@ -680,8 +1081,6 @@ class IvfIndex:
         formulation (module docstring)."""
         if self.centroids is None:
             raise ValueError("Index must be built before searching")
-        if rp:
-            raise NotImplementedError(_RP)
         q = torch.from_numpy(
             np.ascontiguousarray(queries, np.float32)).to(self.device)
         fmask = None
@@ -690,15 +1089,27 @@ class IvfIndex:
                 self._store.filter_mask(filter_ids)).to(self.device)
         if fetch is None:
             fetch = max(4 * int(top_k), 100)
-        if pq:
+        spilled = self._spill > 1
+        has = self._has_emb if fmask is None else self._has_emb & fmask
+        if rp:
+            d_sq, slots = self._search_rp(q, has, int(n_probe), int(top_k),
+                                          int(fetch), rerank, spilled)
+        elif pq and int(n_probe) >= self.k:
             if self._pq is None:
                 raise ValueError("call enable_pq() first")
-            if int(n_probe) >= self.k:
-                raise NotImplementedError(_PQ_SCAN)
+            cell_slots, cell_codes, cell_s = self._device_cells()
+            d_sq, slots = _ivf_pq_scan_cells(
+                self._centroids_dev, cell_slots, cell_codes, cell_s,
+                self._pq.codebooks, self._emb, has, q,
+                self._pq.rotate_queries(queries), top_k=int(top_k),
+                fetch=int(fetch), rerank=rerank,
+                residual=self._pq_residual, dedup=spilled)
+        elif pq:
+            if self._pq is None:
+                raise ValueError("call enable_pq() first")
             if adc not in ADC_MODES:
                 raise ValueError(f"Unknown adc mode: {adc}")
             cell_slots, cell_codes, cell_s = self._device_cells()
-            has = self._has_emb if fmask is None else self._has_emb & fmask
             # the largest per-block transient is the plain version's
             # gathered f32 LUT values, qblock * P * m
             p_tot = int(n_probe) * cell_slots.shape[1]
@@ -718,13 +1129,51 @@ class IvfIndex:
             d_sq, slots = _ivf_search_batch(
                 self._centroids_dev, self._device_lists(), self._emb,
                 self._has_emb, q, fmask, n_probe=int(n_probe),
-                top_k=int(top_k), dedup=self._spill > 1,
+                top_k=int(top_k), dedup=spilled,
             )
         d_sq = d_sq.cpu().numpy()
         slots = slots.cpu().numpy()
         ids = self._store.ids_of(slots)
         dists = np.where(slots >= 0, np.sqrt(np.maximum(d_sq, 0.0)), np.inf)
         return dists.astype(np.float32), ids
+
+    def _search_rp(self, q, has, n_probe, top_k, fetch, rerank, spilled):
+        """The three RP routes, chosen as the JAX package chooses: the flat
+        mirror at n_probe >= k on a weakly clustered corpus (residual ratio
+        above 0.5), else the cell-block scan at n_probe >= k, else the
+        probe."""
+        if self._rp_dev is None:
+            raise ValueError("call enable_rp() first")
+        if self._lists_dirty or self._cells_rp_dev is None:
+            self._rebuild_device_tables()
+        if n_probe >= self.k and self._rp_res_ratio > 0.5:
+            flat, u = self._rp_flat_tables()
+            return _rp_flat_search(
+                q, self._rp_proj_dev, self._rp_mu_dev, flat, u, has,
+                self._emb, top_k=top_k, fetch=fetch, rerank=rerank,
+                tile=min(flat.shape[0], 131072))
+        if n_probe >= self.k:
+            # few, big steps: grow ctile until a tile is ~128k slots, and
+            # bound the [qblock, tile] score at ~256 MB
+            max_l = self._lists_dev.shape[1]
+            ctile = math.gcd(self.k, 64)
+            for cand in (512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+                if self.k % cand == 0 and cand * max_l <= 131072:
+                    ctile = cand
+                    break
+            qblock = 1 << (max(1, min(q.shape[0], 512)) - 1).bit_length()
+            while qblock > 8 and qblock * ctile * max_l * 4 > 268_435_456:
+                qblock //= 2
+            return _ivf_rp_scan_cells(
+                self._centroids_dev, self._lists_dev, self._cells_rp_dev,
+                self._cells_xsq_dev, self._emb, has, q, self._rp_proj_dev,
+                self._rp_mu_dev, top_k=top_k, fetch=fetch, rerank=rerank,
+                dedup=spilled, ctile=ctile, qblock=qblock)
+        return _ivf_rp_probe_cells(
+            self._centroids_dev, self._rp_mu_dev, self._lists_dev,
+            self._cells_rp_dev, self._cells_xsq_dev, self._emb, has, q,
+            self._rp_proj_dev, n_probe=n_probe, top_k=top_k, fetch=fetch,
+            rerank=rerank, dedup=spilled)
 
     @property
     def size(self) -> int:
@@ -748,12 +1197,16 @@ class IvfIndex:
 
     # ------------------------------------------------------------------
     def save_index(self) -> None:
-        """The JAX package's npz: centroids, lists, and the trained PQ
-        state (codes regenerate from the table at load)."""
+        """The JAX package's npz: centroids, lists, and the trained PQ and
+        RP state (codes and projected rows regenerate from the table at
+        load)."""
         if self.index_file is None or self.centroids is None:
             return
         self.index_file.parent.mkdir(parents=True, exist_ok=True)
         extra = {}
+        if self._rp_proj is not None:
+            extra["rp_proj"] = self._rp_proj
+            extra["rp_mu"] = self._rp_mu_dev.cpu().numpy()
         if self._pq is not None and self._pq.codebooks is not None:
             extra["pq_codebooks"] = self._pq.codebooks.cpu().numpy()
             extra["pq_residual"] = np.asarray(self._pq_residual)
@@ -783,8 +1236,8 @@ class IvfIndex:
             sizes = np.asarray(z["list_sizes"])
             flat = np.asarray(z["list_ids"])
             aux = {name: np.asarray(z[name]) for name in
-                   ("pq_codebooks", "pq_rotation", "pq_residual", "spill")
-                   if name in z}
+                   ("rp_proj", "rp_mu", "pq_codebooks", "pq_rotation",
+                    "pq_residual", "spill") if name in z}
         self._set_centroids(centroids)
         self.inverted_lists = []
         off = 0
@@ -808,6 +1261,9 @@ class IvfIndex:
                     for nid, f in zip(all_ids, found) if f
                 ], np.int32)
                 self._store.write(slots, rows[found])
+        if "rp_proj" in aux and all_ids:
+            self._set_rp(aux["rp_proj"], aux["rp_mu"])
+            self._rp_res_ratio = 1.0    # not saved: the cell-block scan
         if "pq_codebooks" in aux and all_ids:
             self._pq = PQCodec.from_arrays(
                 aux["pq_codebooks"], aux.get("pq_rotation"),

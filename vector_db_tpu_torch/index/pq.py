@@ -272,8 +272,9 @@ class PQCodec:
         used as they are).
 
         ``"matmul"`` (default) and ``"pallas"`` run the ``adc_topk`` kernel
-        on a CUDA device, ``"gather"`` its plain version; ``top_k`` > 256
-        takes the plain version in every mode. Returns (approx squared L2
+        on a CUDA device, ``"gather"`` its plain version; ``top_k`` above
+        the kernel's lists (2048) raises on a CUDA device and takes the
+        plain version on the CPU. Returns (approx squared L2
         f32[B, top_k], row indices int32[B, top_k]) ascending, (BIG, -1)
         padded past the valid rows."""
         if mode not in ("matmul", "pallas", "gather"):
@@ -288,7 +289,9 @@ class PQCodec:
                                device=self.device)
         valid = torch.as_tensor(valid).to(self.device)
         top_k = int(top_k)
-        if mode == "gather" or top_k > MAX_K:
+        # past the kernel's lists the CPU runs the plain scan; on a CUDA
+        # device adc_topk raises
+        if mode == "gather" or (top_k > MAX_K and lut.device.type == "cpu"):
             d, i = adc_topk_plain(lut, codes, valid, top_k)
         else:
             d, i = adc_topk(lut, codes, valid, top_k)

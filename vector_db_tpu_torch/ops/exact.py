@@ -41,6 +41,7 @@ from vector_db_tpu_torch.ops.distance import (
     exact_rows_sq,
     squared_norms,
 )
+from vector_db_tpu_torch.ops.topk import smallest_stable
 
 
 def _l2_scan(queries, emb, valid, k, x_sq=None, tile=65536):
@@ -96,13 +97,6 @@ def approx_search_tiled(
     k <= 256 runs the ``l2_topk`` kernel, a larger k its tiled plain scan.
     """
     return _l2_scan(queries, emb, valid, k, x_sq=x_sq, tile=tile)
-
-
-def _smallest_stable(d: torch.Tensor, k: int):
-    """(values, positions) of the k smallest of each row, ascending; ties
-    keep the lower position first (``lax.top_k``'s order)."""
-    d, pos = torch.sort(d, dim=1, stable=True)
-    return d[:, :k], pos[:, :k]
 
 
 _SEL_BLOCK = 128        # block_select_search's rows per block
@@ -180,7 +174,7 @@ def block_select_search(
                           dim=1)
         mins[:, s // block:s // block + d.shape[1] // block] = d.view(
             b, -1, block).amin(-1)
-    _, bidx = _smallest_stable(mins, blocks_k)        # int64[B, blocks_k]
+    _, bidx = smallest_stable(mins, blocks_k)        # int64[B, blocks_k]
 
     offs = torch.arange(block, device=emb.device)
     out_d, out_i = [], []
@@ -192,7 +186,7 @@ def block_select_search(
         ok &= valid[safe]
         d = exact_rows_sq(q_c, emb[safe])
         d = torch.where(ok, d.clamp_min(0.0), BIG)
-        dd, pos = _smallest_stable(d, k)
+        dd, pos = smallest_stable(d, k)
         ii = torch.gather(safe, 1, pos).int()
         out_d.append(dd)
         out_i.append(torch.where(dd < BIG_THRESH, ii, -1))

@@ -32,6 +32,30 @@ def masked_top_k_smallest(
     return top_d, top_i
 
 
+def smallest_stable(d: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, positions int64) of the k smallest entries of each row (the
+    last axis of a 2-D tensor), ascending; equal values keep the lower
+    position first, membership included (``lax.top_k``'s order, and what
+    the JAX package's ``approx_min_k`` returns on the CPU). ``torch.topk``
+    finds them; only where a row holds more copies of its k-th value than
+    the list has room for does the choice among them need the positions:
+    then, for every row, the lowest positions of those copies fill the
+    list."""
+    top = torch.topk(d, k, dim=-1, largest=False, sorted=True)
+    kth = top.values[:, -1:]
+    if bool(((d <= kth).sum(-1) == k).all()):
+        pos = torch.sort(top.indices, dim=1).values
+    else:
+        below = d < kth
+        at = d == kth
+        need = k - below.sum(-1, keepdim=True)
+        take = below | (at & (at.cumsum(-1) <= need))
+        pos = torch.nonzero(take)[:, 1].view(d.shape[0], k)
+    vals, order = torch.sort(torch.gather(d, 1, pos), dim=1, stable=True)
+    return vals, torch.gather(pos, 1, order)
+
+
 def later_copies(x: torch.Tensor) -> torch.Tensor:
     """bool, x's shape: True at every copy of a value in its row (last
     axis) but the first, in position order."""

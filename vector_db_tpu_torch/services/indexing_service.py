@@ -11,22 +11,27 @@ the reference's observable behavior, indexing_service.py:85-89,137-144).
 
 Additions over the reference, as in the JAX package: ``insert_nodes``
 batched ingest (a first batch of >= 4096 nodes into an empty HNSW goes to
-``bulk_build``), ``search_batch``, ``index.type`` (hnsw | flat | ivf), IVF-PQ
-(``index.pq`` on ivf), the wide beam (``index.wide``), the batch scan route
+``bulk_build``), ``search_batch``, ``index.type`` (hnsw | flat | ivf), PQ
+(``index.pq``, or a search's ``pq_chunks``: IVF-PQ probing on ivf, PQ
+traversal on hnsw), residual projection (``index.rp``: RP probing on ivf,
+projected traversal on hnsw), the wide beam (``index.wide``, ``mode``:
+``pool`` or the pool-free ``beam``), the batch scan route
 (``index.scan_batch_threshold``), the filtered engine (``scan`` | ``graph``)
 and the async threshold flush of batched inserts.
 
 The device is the config's ``device``: ``cpu`` is the CPU; ``cuda`` and the
 JAX package's names for the accelerator (``auto``, ``tpu``) are the card,
 and raise (``config_device``) when there is none. A config that asks for a
-mode the port does not have yet raises ``NotImplementedError`` here, at
-construction, naming the ROADMAP item that lifts it; a config never raises
-halfway through serving.
+mode the port does not have yet (``index.autotune``, ``sharded-hnsw``)
+raises ``NotImplementedError`` here, at construction, naming the ROADMAP
+item that lifts it; a config never raises halfway through serving.
 
 The port's tables are updated in place, where the JAX package's device
 arrays are immutable; every search therefore runs under the ingest lock,
 so it sees the index before or after a whole batch, never a half-written
-adjacency.
+adjacency. The index keeps its derived tables (HNSW PQ codes, mirrors)
+current itself, keyed on its table version, so the service holds no stale
+flag of its own where the JAX service marks PQ codes stale after a write.
 """
 
 from __future__ import annotations
@@ -86,9 +91,10 @@ class IndexingService:
                 "index_file is required for non-mmap storage backends"
             )
 
-        # IVF-PQ (config: index.pq: {chunks, ksub, min_size} on ivf): once
-        # the index holds min_size nodes, codebooks train and probing
-        # switches to residual ADC scoring with exact rerank.
+        # PQ (config: index.pq: {chunks, ksub, min_size}): once the index
+        # holds min_size nodes, codebooks train and ivf probing switches to
+        # residual ADC scoring, hnsw traversal to ADC scoring, each with an
+        # exact rerank.
         pq_cfg = index_config.get("pq") or {}
         self._pq_chunks = int(pq_cfg.get("chunks", 0) or 0)
         self._pq_ksub = int(pq_cfg.get("ksub", 256))
@@ -101,6 +107,13 @@ class IndexingService:
         # "pallas" is the adc_probe kernel
         self._pq_adc = str(pq_cfg.get("adc", "pallas"))
         self._pq_active = False
+        # Residual projection (config: index.rp: {dims, min_size}): RP
+        # probing on ivf (preferred over pq when both are set), projected
+        # traversal on hnsw
+        rp_cfg = index_config.get("rp") or {}
+        self._rp_dims = int(rp_cfg.get("dims", 0) or 0)
+        self._rp_min_size = int(rp_cfg.get("min_size", 4096))
+        self._rp_active = False
         # Wide-beam traversal (config: index.wide: {dims, seeds, frontier,
         # steps, min_size}) — the frontier-parallel graph search
         # (index/wide_beam.py) for unfiltered hnsw queries once active.
@@ -119,8 +132,12 @@ class IndexingService:
         # lives on the card; true/false force it
         self._wide_merge_kernel = wide_cfg.get("merge_kernel", False)
         self._wide_min_size = int(wide_cfg.get("min_size", 4096))
-        # optional frontier schedule [[F1, T1], [F2, T2], ...]: overrides
-        # frontier/steps — wide early, narrow late
+        # mode: "pool" (wide_search, an ef-wide pool) or "beam"
+        # (beam_search: pool-free, the frontier from each step's candidates)
+        self._wide_mode = str(wide_cfg.get("mode", "pool"))
+        self._wide_hist = int(wide_cfg.get("hist", 2))
+        # optional frontier schedule [[F1, T1], [F2, T2], ...] (pool mode):
+        # overrides frontier/steps — wide early, narrow late
         sched = wide_cfg.get("schedule")
         self._wide_schedule = (
             tuple((int(f), int(t)) for f, t in sched) if sched else None)
@@ -203,19 +220,6 @@ class IndexingService:
             raise _not_ported("index.type: sharded-hnsw", "A7")
         if index_config.get("autotune"):
             raise _not_ported("index.autotune (AutoTuner)", "A6")
-        if kind == "hnsw" and int((index_config.get("pq") or {}).get(
-                "chunks", 0) or 0) > 0:
-            raise _not_ported("index.pq on hnsw (PQ traversal)", "A5.4")
-        if int((index_config.get("rp") or {}).get("dims", 0) or 0) > 0:
-            if kind == "hnsw":
-                raise _not_ported("index.rp on hnsw (projected traversal)",
-                                  "A5.4")
-            if kind == "ivf":
-                raise _not_ported("index.rp on ivf (residual projection)",
-                                  "A5.2")
-        if (index_config.get("wide") or {}).get("mode", "pool") == "beam":
-            raise _not_ported("index.wide.mode: beam (pool-free beam)",
-                              "A5.3")
 
     def is_index_loaded(self) -> bool:
         return self._index_loaded
@@ -295,13 +299,14 @@ class IndexingService:
         self._index_modified = True
 
     def _maybe_enable_pq(self, requested_chunks: Optional[int]) -> bool:
-        """Activate PQ probing for index.type: ivf when configured (or
-        requested via the search's pq_chunks param) and the corpus is big
-        enough to train codebooks (residual IVFADC; codes stay current
-        incrementally — IvfIndex.add encodes on the spot). On hnsw a
-        pq_chunks request that would switch the JAX package to PQ
-        traversal raises (ROADMAP A5.4). Returns whether PQ search should
-        be used."""
+        """Activate PQ when configured (or requested via the search's
+        pq_chunks param) and the corpus is big enough to train codebooks:
+        residual IVFADC probing on ivf (codes stay current incrementally:
+        IvfIndex.add encodes on the spot), PQ traversal on hnsw (the index
+        re-encodes its codes at the first PQ search after a write, keyed on
+        its table version, the codebooks not retrained; the JAX service
+        marks them stale itself and refreshes them here).
+        Returns whether PQ search should be used."""
         if self.index_type not in ("hnsw", "ivf"):
             return False
         chunks = self._pq_chunks or int(requested_chunks or 0)
@@ -313,17 +318,46 @@ class IndexingService:
             dim = self.index._dim or 0
             if dim == 0 or dim % chunks != 0:
                 return False
-            if self.index_type == "hnsw":
-                raise _not_ported("PQ traversal of hnsw (pq_chunks)", "A5.4")
             with self._lock:
                 if not self._pq_active:
+                    extra = ({"residual": self._pq_residual}
+                             if self.index_type == "ivf" else {})
                     self.index.enable_pq(
                         chunks=chunks, ksub=self._pq_ksub,
-                        opq_iters=self._pq_opq_iters,
-                        residual=self._pq_residual,
-                    )
+                        opq_iters=self._pq_opq_iters, **extra)
                     self._pq_active = True
         return self._pq_active
+
+    def _maybe_enable_rp(self) -> bool:
+        """Activate residual-projection probing for index.type: ivf when
+        configured and the corpus is big enough for the PCA train pass.
+        Rows added later stay current (IvfIndex.add projects in place)."""
+        if self.index_type != "ivf" or self._rp_dims <= 0:
+            return False
+        if not self._rp_active:
+            if (self.index.centroids is None
+                    or self.index.size < self._rp_min_size):
+                return False
+            with self._lock:
+                if not self._rp_active:
+                    self.index.enable_rp(dims=self._rp_dims)
+                    self._rp_active = True
+        return self._rp_active
+
+    def _maybe_enable_hnsw_rp(self) -> bool:
+        """Activate projected traversal for index.type: hnsw when index.rp
+        is configured (the PCA mirror re-projects after a table change, so
+        later inserts stay current)."""
+        if self.index_type != "hnsw" or self._rp_dims <= 0:
+            return False
+        if not self._rp_active:
+            if self.index.size < self._rp_min_size:
+                return False
+            with self._lock:
+                if not self._rp_active:
+                    self.index.enable_rp(dims=self._rp_dims)
+                    self._rp_active = True
+        return self._rp_active
 
     def _maybe_enable_wide(self) -> bool:
         """Activate wide-beam traversal for index.type: hnsw when
@@ -352,8 +386,15 @@ class IndexingService:
                     np.asarray(query, np.float32)[None, :], k, ef,
                     kwargs.get("filter_ids"))
                 return self._resolve(dists, ids, k)
-            if kwargs.get("filter_ids") is None:
-                self._maybe_enable_pq(kwargs.get("pq_chunks"))
+            unfiltered = kwargs.get("filter_ids") is None
+            q1 = np.asarray(query, np.float32)[None, :]
+            ef = int(kwargs.get("ef", 50) or 50)
+            if unfiltered and self._maybe_enable_hnsw_rp():
+                return self._resolve(*self.index.search_batch_rp(
+                    q1, k, ef=max(ef, k), expand=4), k)
+            if unfiltered and self._maybe_enable_pq(kwargs.get("pq_chunks")):
+                return self._resolve(*self.index.search_batch_pq(
+                    q1, k, ef=max(ef, k), expand=4), k)
             return self.index.search(query, k=k, **kwargs)
 
     def _resolve(self, dists, ids, k):
@@ -379,12 +420,15 @@ class IndexingService:
             return [(n, d) for d, n in cands[:k]]
         n_probe = int(kwargs.get("n_probe", 10) or 10)
         n_probe = max(1, min(n_probe, self.index.k))
-        # PQ probing when configured; filters fold into the validity mask
-        # inside the probe (IvfIndex.search_batch)
-        use_pq = self._maybe_enable_pq(kwargs.get("pq_chunks"))
+        # RP / PQ probing when configured; filters fold into the validity
+        # mask inside the approximate modes (IvfIndex.search_batch)
+        use_rp = self._maybe_enable_rp()
+        use_pq = (not use_rp
+                  and self._maybe_enable_pq(kwargs.get("pq_chunks")))
         dists, ids = self.index.search_batch(
             np.asarray(query, np.float32)[None, :], n_probe=n_probe,
-            top_k=k, filter_ids=filter_ids, pq=use_pq, adc=self._pq_adc,
+            top_k=k, filter_ids=filter_ids, pq=use_pq, rp=use_rp,
+            adc=self._pq_adc,
         )
         return self._resolve(dists, ids, k)
 
@@ -397,11 +441,13 @@ class IndexingService:
                 # filters implement tenancy/ACL — forward them (mirrors
                 # _ivf_search; a dropped filter silently leaks excluded
                 # docs)
-                use_pq = self._maybe_enable_pq(kwargs.get("pq_chunks"))
+                use_rp = self._maybe_enable_rp()
+                use_pq = (not use_rp
+                          and self._maybe_enable_pq(kwargs.get("pq_chunks")))
                 return self.index.search_batch(
                     queries, n_probe=n_probe, top_k=k,
                     filter_ids=kwargs.get("filter_ids"), pq=use_pq,
-                    adc=self._pq_adc,
+                    rp=use_rp, adc=self._pq_adc,
                 )
             if self.index_type == "flat":
                 # exact search has no ef/beam knobs
@@ -422,13 +468,21 @@ class IndexingService:
 
     def _wide_dispatch(self, queries: np.ndarray, k: int, ef: int,
                        filter_ids=None):
-        """Route an hnsw batch once wide is active. Filtered queries go to
-        the masked bf16 scan under index.filtered_engine: scan (the true
-        filtered top-k); filtered_engine: graph runs the two-pool wide
-        path (the reference navigate-but-exclude contract)."""
+        """Route an hnsw batch once wide is active, to index.wide.mode's
+        formulation (pool: wide_search; beam: the pool-free beam_search).
+        Filtered queries go to the masked bf16 scan under
+        index.filtered_engine: scan (the true filtered top-k);
+        filtered_engine: graph runs the two-pool wide path in pool mode,
+        the trajectory mask in beam mode (the reference
+        navigate-but-exclude contract)."""
         if filter_ids is not None and self._filtered_engine == "scan":
             return self.index.search_batch_scan(
                 queries, k, filter_ids=filter_ids)
+        if self._wide_mode == "beam":
+            return self.index.search_batch_beam(
+                queries, k, frontier=self._wide_frontier or 224,
+                steps=self._wide_steps or 12, hist=self._wide_hist,
+                filter_ids=filter_ids)
         return self.index.search_batch_wide(
             queries, k, ef=max(4 * max(ef, k), 64),
             frontier=self._wide_frontier, steps=self._wide_steps,
