@@ -30,7 +30,7 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    (adc_topk with its row and group terms, held against its plain version
    at the scan's own inputs, with its bound and lookup floor); then a
    PQCodec ADC scan of the corpus (adc_topk) against its gather mode, and a
-   FlatIndex search at k = 300 (above l2_topk's 256) against float64;
+   FlatIndex search at k = 300 (two passes of l2_topk) against float64;
 5. HNSW at the repo's 1M benchmark setting (scripts/exp_wide_final.py:38-76,
    scripts/bench_1m.py:85-92), as a user runs it: bulk_build of the first
    983,616 of 1M x 768 embedding_like rows (M = 16, l_max = 5; level 0
@@ -198,11 +198,28 @@ SVC_PQ_M = 16
 # take more time than the phase has
 SVC_FIELD_CHARS = 64
 SVC_FULL_ROWS = 50_000  # rows of the full-width StorageService timing
+SVC_FULL_CAP = 250_000  # its capacity (the deployment's 1M cut to a
+                        # quarter: the create, 46 s at 1M, scales with it)
 SVC_HTTP = {"embed": 5, "batch_docs": 1, "batch_docs_size": 50,
             "search": 50, "search_batch": 5, "health": 20, "stats": 5}
 SCAN_FLOOR = 0.97
 SVC_WIDE_FLOOR = 0.7378  # 0.02 under the wide route's first reading, 0.7578
 SVC_WIDE_EFS = (400, 1280)  # search_batch_wide efs read beside the route's
+# phase 7: autotune and sharding at the same deployment
+AT_TARGET = 0.95        # index.autotune.target_recall
+AT_SAMPLE = 128         # index.autotune.sample (calibration queries; the
+                        # default 256 cut to keep the smoke in its time)
+AT_BATCHES = (1000, 64, 1)  # routed batch sizes: buckets 1024, 64 and 8
+AT_SINGLE_Q = 200       # single queries of the B = 1 routed recall
+AT_SLACK = 0.02         # a routed recall may trail its decision's target
+SH_SHARDS = 4           # shards of the sharded indexes, on one card
+SH_SEEDS = 1024         # wide seeds a shard (4,096 over the four)
+SH_CLASSIC_EFS = (50, 400)
+SH_BEAM = dict(frontier=224, steps=12, hist=2)
+SH_SLACK = 0.01         # a sharded recall may trail the unsharded one
+SH_IVF_CELLS = 1024
+SH_IVF_PROBE = 32
+SH_CHECK_B = 100        # queries of the per-shard IVF merge check
 # peaks for the bound (H100 SXM datasheet, at 700 W)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
@@ -670,6 +687,65 @@ def phase_kernels(torch, dev, kernels):
             block_ties(dtype, b)
     log(f"phase 2 edge shapes and block ties ok: max abs err {err}")
 
+    # lists past the kernels' own, as the scans run them: passes, each
+    # launch from the last one's final (value, row) pair; a run of tied rows
+    # across the passes' cuts, and k past the valid rows
+    from vector_db_tpu_torch.ops.cuda.adc_scan import MAX_K as ADC_MAX_K
+    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk_long
+    from vector_db_tpu_torch.ops.exact import approx_search_tiled, exact_search
+
+    def passes_case(name, kernel, width, k, call, one, want, scale):
+        """``call`` at k by passes against the plain version; its time
+        beside ``one``, a single launch at the kernel's width."""
+        before = kernel.launches
+        got = call()
+        launched = kernel.launches - before
+        if launched != -(-k // width):
+            raise AssertionError(f"{name}: {launched} launches")
+        e = check_topk(f"{name} ({launched} launches)", *got, *want(),
+                       group=k, scale=scale)
+        log(f"{name}: {launched} launches {cuda_ms(torch, call):.3f} ms, "
+            f"one launch at k = {width} {cuda_ms(torch, one):.3f} ms; "
+            f"max abs err {e}")
+        return e
+
+    for n, d, b, k, vr in ((30000 + 11, 200, 70, 600, None),
+                           (3000, 64, 5, 2900, 2000)):
+        x = randn(n, d)
+        x[100:700] = x[0]
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        valid[::9] = False
+        if vr is not None:
+            valid[vr:] = False
+        q = x[:1] + 0.01 * randn(b, d)
+        x_sq = (x * x).sum(-1)
+        for tab, scan in ((x, exact_search), (x.to(torch.bfloat16),
+                                              approx_search_tiled)):
+            err["l2_topk"] = max(err["l2_topk"], passes_case(
+                f"l2_topk {tab.dtype} n={n} b={b} k={k} by passes",
+                l2_topk, 256, k,
+                lambda: scan(q, tab, valid, k, x_sq=x_sq),
+                lambda: l2_topk(q, tab, valid, 256, x_sq=x_sq),
+                lambda: l2_topk_plain(q, tab, valid, k + 1, x_sq),
+                terms(q, x_sq)))
+    for n, b, k, vr in ((100000 + 3, 70, 2560, None), (6000, 5, 4500, 3000)):
+        lut = randn(b, 16, 256) ** 2
+        codes = torch.randint(0, 256, (n, 16), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        codes[200:3000] = codes[5]
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        valid[::9] = False
+        if vr is not None:
+            valid[vr:] = False
+        err["adc_topk"] = max(err["adc_topk"], passes_case(
+            f"adc_topk n={n} b={b} k={k} by passes", adc_topk, ADC_MAX_K, k,
+            lambda: adc_topk_long(lut, codes, valid, k),
+            lambda: adc_topk(lut, codes, valid, ADC_MAX_K),
+            lambda: adc_topk_plain(lut, codes, valid, k + 1), 0.0))
+    log(f"phase 2 long lists by passes ok (l2_topk k 600, 2900; adc_topk k "
+        f"2560, 4500; tied runs across the cuts, k past the valid rows): "
+        f"max abs err {err}")
+
     # the main path's shapes
     q = randn(B, DIM)
     for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -1106,17 +1182,19 @@ def phase_ivf_pq(torch, kernels):
         kernels["adc_topk"]["max_abs_err"], e)
     del codec, codes, ivf
 
-    # FlatIndex at k = 300, above l2_topk's 256: the tiled plain branch
+    # FlatIndex at k = 300, past l2_topk's 256: two passes of the kernel
     sub = x[:131072]
     flat = FlatIndex(capacity=1 << 17, device="cuda")
     flat.insert_nodes([Node(id=i, embedding=sub[i])
                        for i in range(sub.shape[0])])
     launches = l2_topk.launches
     _, ids = flat.search_batch(queries[:8], 300)
-    if l2_topk.launches != launches or ids.shape != (8, 300):
-        raise AssertionError("FlatIndex k=300 did not take the plain branch")
+    if l2_topk.launches != launches + 2 or ids.shape != (8, 300):
+        raise AssertionError("FlatIndex k=300 did not take two passes of "
+                             "l2_topk")
     float64_bound("FlatIndex k=300", sub, queries[:8], ids, 300)
-    log("FlatIndex f32 at k=300 over 131072 rows: within the float64 bound")
+    log("FlatIndex f32 at k=300 over 131072 rows (two l2_topk passes): "
+        "within the float64 bound")
     log(f"IVF-PQ summary: build {build_s:.1f} s, enable_pq {pq_s:.1f} s, "
         f"QPS {qps}, recall@{K} {recalls}, peak device memory {peak} bytes "
         f"({peak / 2**30:.2f} GiB)")
@@ -1832,9 +1910,10 @@ def phase_hnsw(torch, kernels):
         f" PQ / RP / beam modes {more}")
 
 
-def svc_config(path, file_path, **index) -> str:
+def svc_config(path, file_path, capacity=None, **index) -> str:
     """Write the phase's config: config.yaml's deployment (fake-384 in place
-    of MiniLM-L6, whose weights the repo does not hold) on the card."""
+    of MiniLM-L6, whose weights the repo does not hold) on the card;
+    ``capacity`` (default SVC_N) is vector_db.capacity."""
     import yaml
 
     cfg = {"embedding": {"model": f"fake-{SVC_DIM}", "dimension": SVC_DIM},
@@ -1842,9 +1921,19 @@ def svc_config(path, file_path, **index) -> str:
            "index": {"ef_construction": HNSW_EFC, "M": HNSW_M,
                      "flush_threshold": 1000, **index},
            "vector_db": {"file_path": str(file_path), "dimension": SVC_DIM,
-                         "capacity": SVC_N}}
+                         "capacity": capacity or SVC_N}}
     path.write_text(yaml.safe_dump(cfg))
     return str(path)
+
+
+def svc_hnsw(**extra) -> dict:
+    """The HNSW service's index config (config.yaml's, with the scan
+    route, the filtered scan and the wide beam on)."""
+    return dict(type="hnsw", scan_batch_threshold=SVC_SCAN_THRESHOLD,
+                filtered_engine="scan",
+                wide={"enabled": True, "dims": 120, "seeds": 4096,
+                      "min_size": SVC_MIN_SIZE, "merge_kernel": "auto"},
+                **extra)
 
 
 def median_qps(torch, call, batches) -> float:
@@ -2161,17 +2250,17 @@ def svc_kernel_checks(torch, say, svc, queries, allowed):
 
 def svc_full_width(say, tmp, nodes):
     """A StorageService at the reference's field widths (MMapNodeStorage's
-    defaults, 10,240 / 5,120 characters) and the deployment's capacity:
-    create, save_many of the first SVC_FULL_ROWS nodes in batches of
-    SVC_BATCH, then a reopen (the restart's metadata hydration). Returns
-    (save_many docs/s, reopen s)."""
+    defaults, 10,240 / 5,120 characters) and a quarter of the deployment's
+    capacity (SVC_FULL_CAP): create, save_many of the first SVC_FULL_ROWS
+    nodes in batches of SVC_BATCH, then a reopen (the restart's metadata
+    hydration). Returns (save_many docs/s, reopen s)."""
     import shutil
 
     from vector_db_tpu_torch.services.storage_service import StorageService
 
     path = tmp / "full" / "vdb"
     t0 = time.perf_counter()
-    st = StorageService(str(path), dim=SVC_DIM, capacity=SVC_N)
+    st = StorageService(str(path), dim=SVC_DIM, capacity=SVC_FULL_CAP)
     create_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for s in range(0, SVC_FULL_ROWS, SVC_BATCH):
@@ -2181,7 +2270,7 @@ def svc_full_width(say, tmp, nodes):
     meta = path.with_suffix(".metadata.npy")
     apparent, on_disk = os.path.getsize(meta), os.stat(meta).st_blocks * 512
     t0 = time.perf_counter()
-    st = StorageService(str(path), dim=SVC_DIM, capacity=SVC_N)
+    st = StorageService(str(path), dim=SVC_DIM, capacity=SVC_FULL_CAP)
     reopen_s = time.perf_counter() - t0
     tagged = len(st.filter_by_metadata({"tag": 3}))
     if st.size() != SVC_FULL_ROWS or tagged != len(range(3, SVC_FULL_ROWS,
@@ -2192,12 +2281,14 @@ def svc_full_width(say, tmp, nodes):
     shutil.rmtree(tmp / "full")
     rate = SVC_FULL_ROWS / save_s
     say(f"StorageService at the reference's widths (content 10,240 / "
-        f"metadata 5,120 characters, capacity {SVC_N}): create "
-        f"{create_s:.2f} s, save_many of {SVC_FULL_ROWS} docs in batches of "
-        f"{SVC_BATCH} {save_s:.2f} s ({rate:.1f} docs/s, host clock), "
-        f"reopen with the metadata hydration {reopen_s:.2f} s; metadata "
-        f"file {apparent} bytes, {on_disk} on disk; at {SVC_N} rows the same "
-        f"rates would take {SVC_N / rate:.1f} s to save and "
+        f"metadata 5,120 characters, capacity {SVC_FULL_CAP}): create "
+        f"{create_s:.2f} s (at {SVC_N} rows "
+        f"{create_s * SVC_N / SVC_FULL_CAP:.1f} s, linear), save_many of "
+        f"{SVC_FULL_ROWS} docs in batches of {SVC_BATCH} {save_s:.2f} s "
+        f"({rate:.1f} docs/s, host clock), reopen with the metadata "
+        f"hydration {reopen_s:.2f} s; metadata file {apparent} bytes, "
+        f"{on_disk} on disk; at {SVC_N} rows the same rates would take "
+        f"{SVC_N / rate:.1f} s to save and "
         f"{reopen_s * SVC_N / SVC_FULL_ROWS:.1f} s to reopen (linear)")
     return rate, reopen_s
 
@@ -2547,18 +2638,15 @@ def phase_services(torch, kernels, card):
     from pathlib import Path
 
     from vector_db_tpu_torch import embedding_like
-    from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
-    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
-    from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
     from vector_db_tpu_torch.services import storage_service
     from vector_db_tpu_torch.services.indexing_service import IndexingService
     from vector_db_tpu_torch.storage import MMapNodeStorage
     from vector_db_tpu_torch.types import Node
 
-    def say(msg):
-        log(f"{msg} [{card}]")
+    def say(msg):  # with the seconds since the phase began
+        log(f"{msg} (+{time.perf_counter() - t_phase:.1f} s) [{card}]")
 
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     x = embedding_like(SVC_N + SVC_QUERIES, SVC_DIM, seed=2, device="numpy")
     queries = np.ascontiguousarray(x[SVC_N:])
     x = x[:SVC_N]
@@ -2577,16 +2665,9 @@ def phase_services(torch, kernels, card):
     try:
         with tempfile.TemporaryDirectory() as tmp:
             tmp = Path(tmp)
-            cfg = svc_config(
-                tmp / "config.yaml", tmp / "vdb", type="hnsw",
-                scan_batch_threshold=SVC_SCAN_THRESHOLD,
-                filtered_engine="scan",
-                wide={"enabled": True, "dims": 120, "seeds": 4096,
-                      "min_size": SVC_MIN_SIZE, "merge_kernel": "auto"})
+            cfg = svc_config(tmp / "config.yaml", tmp / "vdb", **svc_hnsw())
             # the services' path: counts at 0 just before it
-            l2_topk.launches = l2_topk.launches_bf16 = 0
-            sorted_topk.launches = 0
-            adc_probe_scores.launches = 0
+            _reset_counts()
             storage = storage_service.StorageService(
                 str(tmp / "vdb"), dim=SVC_DIM, capacity=SVC_N)
             svc = IndexingService(storage=storage.storage, config_path=cfg)
@@ -2657,13 +2738,9 @@ def phase_services(torch, kernels, card):
 
             # d: searches through the service
             d = svc_searches(torch, say, svc, storage, queries, deleted)
-            counts = {"l2_topk": l2_topk.launches - l2_topk.launches_bf16,
-                      "l2_topk_bf16": l2_topk.launches_bf16,
-                      "sorted_topk": sorted_topk.launches}
-            for name, c in counts.items():
-                if c <= 0:
-                    raise AssertionError(f"{name}: no launch on the "
-                                         "services' path")
+            counts = _counts()
+            _launched("services'", counts,
+                      ("l2_topk", "l2_topk_bf16", "sorted_topk"))
             say(f"launches of the services' own calls (ingest, restart, "
                 f"single inserts, deletes, searches through IndexingService;"
                 f" the reference scans, direct index calls and plain checks "
@@ -2686,6 +2763,11 @@ def phase_services(torch, kernels, card):
                                     queries, K))
             single_rows = profile(torch, "service single query",
                                   lambda: svc.search(queries[1], k=K))
+            say(f"phase 6 ok ({time.perf_counter() - t_phase:.1f} s)")
+            t_phase = time.perf_counter()
+            at = svc_autotune(torch, say, tmp, storage, svc, x, queries,
+                              kernels)
+            say(f"phase 7a ok ({time.perf_counter() - t_phase:.1f} s)")
             storage.close()
     finally:
         storage_service.MMapNodeStorage = real_mmap
@@ -2706,7 +2788,646 @@ def phase_services(torch, kernels, card):
         f"{e['flat']['qps']:.1f} QPS, IVF-PQ "
         f"{e['ivf']['qps']:.1f} QPS recall {e['ivf']['recall']:.4f}; HTTP "
         f"requests/s { {k: round(v, 1) for k, v in f.items()} }; profiled "
-        f"{len(scan_rows)} + {len(single_rows)} device rows")
+        f"{len(scan_rows)} + {len(single_rows)} device rows; phase 7a: "
+        f"time to serve {at['serve_s']:.2f} s, routed "
+        f"{ {b: (r['mode'], round(r['recall'], 4))
+             for b, r in at['routed'].items()} }, IVF n_probe "
+        f"{at['ivf']['n_probe']} recall {at['ivf']['recall']:.4f}")
+    return {"index": svc.index, "x": x, "queries": queries,
+            "deleted": deleted}
+
+
+def _reset_counts():
+    """Every kernel count to 0: a path's own launches follow."""
+    from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
+    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
+
+    l2_topk.launches = l2_topk.launches_bf16 = 0
+    sorted_topk.launches = adc_probe_scores.launches = adc_topk.launches = 0
+
+
+def _counts():
+    """Each kernel's launches since the last _reset_counts."""
+    from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
+    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
+
+    return {"l2_topk": l2_topk.launches - l2_topk.launches_bf16,
+            "l2_topk_bf16": l2_topk.launches_bf16,
+            "sorted_topk": sorted_topk.launches,
+            "adc_probe": adc_probe_scores.launches,
+            "adc_topk": adc_topk.launches}
+
+
+def _launched(path, counts, names) -> None:
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name}: no launch on the {path} path")
+
+
+def _timed_decisions(tuner):
+    """Wrap ``tuner.decision_for`` to record each calibration's seconds
+    under its /stats key; returns the dict it fills."""
+    secs = {}
+    real = tuner.decision_for
+
+    def timed(service, batch_size, target=None, sel_frac=None):
+        before = len(tuner._decisions)
+        t0 = time.perf_counter()
+        dec = real(service, batch_size, target, sel_frac)
+        if len(tuner._decisions) > before:
+            secs[f"b{dec['bucket']}@{dec['target']:g}" + (
+                f"/sel{dec['selectivity']:g}" if "selectivity" in dec
+                else "")] = time.perf_counter() - t0
+        return dec
+
+    tuner.decision_for = timed
+    return secs
+
+
+def _stats_over_http(cfg, storage, svc):
+    """GET /stats of the app over ``svc``, on 127.0.0.1: the JSON body."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from vector_db_tpu_torch.api.app import create_app
+    from vector_db_tpu_torch.services.embedding_service import (
+        EmbeddingService)
+
+    async def get():
+        os.environ["VDB_TPU_WARMUP"] = "0"
+        client = TestClient(TestServer(create_app(
+            config_path=cfg, embedding_client=EmbeddingService(cfg),
+            storage_service=storage, indexing_service=svc),
+            host="127.0.0.1"))
+        await client.start_server()
+        r = await client.get("/stats")
+        if r.status != 200:
+            raise AssertionError(f"/stats: HTTP {r.status}")
+        body = await r.json()
+        await client.close()
+        return body
+
+    return asyncio.run(get())
+
+
+def routed_floor(name, rec, dec) -> None:
+    """A routed call's recall is at least its decision's target less
+    AT_SLACK, or, where no candidate met the target, the recall the chosen
+    one measured in calibration less AT_SLACK."""
+    floor = min(dec["target"], dec["recall"]) - AT_SLACK
+    if rec < floor:
+        raise AssertionError(f"{name}: routed recall {rec} < {floor} "
+                             f"({dec['mode']} {dec['params']})")
+
+
+def svc_autotune(torch, say, tmp, storage, svc, x, queries, kernels):
+    """Phase 7a: phase 6's HNSW service restarted from its files with
+    index.autotune on (target AT_TARGET, AT_SAMPLE calibration queries,
+    k = K, the default ef ladder), then the IVF-PQ service of step e with
+    it. Records the time to serve, every decision table (each candidate's
+    recall and QPS, the calibration seconds) for B = 1000, 64 and single
+    queries and for a filtered batch (tag == 3, selectivity 0.1), the
+    routed calls' QPS and recall against the port's f32 scan on fresh
+    perturbed queries (each held to ``routed_floor``),
+    /stats over HTTP and the routed path's launches; the ground truth's
+    l2_topk calls are held against the plain version, uncounted. Returns
+    the step's numbers."""
+    from vector_db_tpu_torch.ops import exact
+    from vector_db_tpu_torch.services.indexing_service import IndexingService
+    from vector_db_tpu_torch.storage import InMemoryNodeStorage
+    from vector_db_tpu_torch.types import Node
+
+    svc.wait_for_flush()
+    svc.force_save_index()
+    autotune = {"target_recall": AT_TARGET, "sample": AT_SAMPLE, "k": K,
+                "min_size": SVC_MIN_SIZE}
+    cfg = svc_config(tmp / "autotune.yaml", tmp / "vdb",
+                     **svc_hnsw(autotune=autotune))
+    rng = np.random.default_rng(8)
+    fresh = queries + 0.01 * rng.standard_normal(queries.shape).astype(
+        np.float32)
+    allowed = storage.filter_by_metadata({"tag": 3})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the autotuned service's path: counts at 0 just before it
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    at = IndexingService(storage=storage.storage, config_path=cfg)
+    secs = _timed_decisions(at._autotune)
+    first = at.search(fresh[0], k=K)        # calibrates the B = 1 table
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    if not at.is_index_loaded() or not first:
+        raise AssertionError("autotune restart: no index or no answer")
+    with uncounted():
+        _, truth = at.index.search_batch_scan(fresh, K, mode="exact")
+        _, ftruth = at.index.search_batch_scan(fresh, K, mode="exact",
+                                               filter_ids=allowed)
+    out = {"serve_s": serve_s, "routed": {}}
+    for b in AT_BATCHES:
+        n = AT_SINGLE_Q if b == 1 else len(fresh)
+        dec = at._autotune.decision_for(at, b)
+        got = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(0, n, b):
+            if b == 1:
+                got.append([nd.id for nd, _ in at.search(fresh[s], k=K)])
+            else:
+                got.extend(at.search_batch(fresh[s:s + b], K)[1].tolist())
+        torch.cuda.synchronize()
+        qps = n / (time.perf_counter() - t0)
+        rec = recall_at(np.asarray(got), truth[:n])
+        out["routed"][b] = {"mode": dec["mode"], "params": dec["params"],
+                            "qps": qps, "recall": rec}
+        routed_floor(f"autotune B = {b}", rec, dec)
+    at.search_batch(fresh, K, filter_ids=allowed)      # calibrates
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = at.search_batch(fresh, K, filter_ids=allowed)
+    torch.cuda.synchronize()
+    fqps = len(fresh) / (time.perf_counter() - t0)
+    if not set(res[1][res[1] >= 0].tolist()) <= allowed:
+        raise AssertionError("autotune filtered: a result outside the "
+                             "filter")
+    frec = recall_at(res[1], ftruth)
+    fdec = next(d for key, d in at._autotune._decisions.items()
+                if key[2] < 1.0)
+    out["routed"]["filtered"] = {"mode": fdec["mode"],
+                                 "params": fdec["params"], "qps": fqps,
+                                 "recall": frec}
+    routed_floor("autotune filtered", frec, fdec)
+    counts = _counts()
+    _launched("autotuned service's", counts,
+              ("l2_topk", "l2_topk_bf16", "sorted_topk"))
+    tables = at._autotune.stats()
+    for key, dec in zip(tables, at._autotune._decisions.values()):
+        say(f"autotune table {key}: calibrated in {secs[key]:.2f} s at "
+            f"size {dec['calibrated_at_size']}; chose {dec['mode']} "
+            f"{dec['params']} (recall {dec['recall']}, {dec['qps']} QPS, met "
+            f"{dec['met']}); candidates " + "; ".join(
+                f"{c['name']} {c['params']} recall {c['recall']} qps "
+                f"{c['qps']}" for c in dec["candidates"]))
+    stats = _stats_over_http(cfg, storage, at)["index"]["autotune"]
+    if stats != json.loads(json.dumps(tables)):
+        raise AssertionError(f"/stats autotune: {sorted(stats)}")
+    with uncounted():
+        err = check_l2_calls(
+            torch, say, "autotune ground truth",
+            lambda: at._autotune._draw_calibration(at.index), torch.float32)
+    fold_err(kernels, "l2_topk", err)
+    routed = {b: {k: round(v, 4) if isinstance(v, float) else v
+                  for k, v in r.items()} for b, r in out["routed"].items()}
+    say(f"autotuned HNSW service (phase 6's files, index.autotune target "
+        f"{AT_TARGET}, sample {AT_SAMPLE}, k {K}): time to serve "
+        f"{serve_s:.2f} s (the B = 1 calibration included); routed calls "
+        f"on {len(fresh)} fresh perturbed queries ({AT_SINGLE_Q} at B = 1), "
+        f"recall@{K} against the f32 scan and QPS (host clock): {routed}; "
+        f"/stats over HTTP carries the tables {sorted(stats)}; launches "
+        f"{counts}")
+    del at
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the IVF-PQ service of step e, with index.autotune on
+    nodes = [Node(id=i, embedding=x[i]) for i in range(SVC_SMALL_N)]
+    cfg = svc_config(tmp / "at_ivf.yaml", tmp / "at_ivf", type="ivf",
+                     ivf_k=SVC_IVF_K, autotune=autotune,
+                     pq={"chunks": SVC_PQ_M, "min_size": SVC_MIN_SIZE})
+    _reset_counts()
+    ivf = IndexingService(storage=InMemoryNodeStorage(), config_path=cfg,
+                          index_file=str(tmp / "at_ivf.npz"))
+    secs = _timed_decisions(ivf._autotune)
+    ivf.insert_nodes(nodes)
+    got = ivf.search_batch(fresh, K)
+    counts = _counts()
+    _launched("autotuned IVF-PQ service's", counts, ("adc_probe", "adc_topk"))
+    with uncounted():
+        _, slots = exact.exact_search(
+            torch.from_numpy(fresh).to(ivf.index._emb.device),
+            ivf.index._emb, ivf.index._has_emb, K)
+        itruth = ivf.index._store.ids_of(slots.cpu().numpy())
+    dec = next(iter(ivf._autotune._decisions.values()))
+    rec = recall_at(got[1], itruth)
+    qps = median_qps(torch, lambda q: ivf.search_batch(q, K), [fresh] * 5)
+    out["ivf"] = {"n_probe": dec["params"]["n_probe"], "recall": rec,
+                  "qps": qps, "cal_s": next(iter(secs.values()))}
+    routed_floor("autotune ivf", rec, dec)
+    say(f"autotuned IVF-PQ service ({SVC_SMALL_N} x {SVC_DIM}, ivf_k "
+        f"{SVC_IVF_K}, PQ m {SVC_PQ_M}): calibrated in "
+        f"{out['ivf']['cal_s']:.2f} s; chose {dec['params']} (recall "
+        f"{dec['recall']}, {dec['qps']} QPS); candidates " + "; ".join(
+            f"n_probe {c['params']['n_probe']} recall {c['recall']} qps "
+            f"{c['qps']}" for c in dec["candidates"])
+        + f"; routed B = {len(fresh)}: recall@{K} {rec:.4f} against the f32 "
+        f"scan, {qps:.1f} QPS; launches {counts}")
+    return out
+
+
+def sharded_flat(torch, say, kernels, mesh, x, queries, live, batches):
+    """Phase 7b, a: ShardedFlatIndex over the rows, against the
+    single-device f32 scan (ids between apart values, distances within
+    1e-5), its l2_topk calls against the plain version (uncounted), and
+    the 2 x 2 mesh's answers against the 1-D mesh's. Returns (QPS, its
+    answers)."""
+    from vector_db_tpu_torch.ops.exact import exact_search
+    from vector_db_tpu_torch.parallel.mesh import make_mesh_2d
+    from vector_db_tpu_torch.parallel.sharded import ShardedFlatIndex
+
+    dev = mesh.devices[0]
+    cap = SVC_N // SH_SHARDS
+    answers = []
+    for grid in (mesh, make_mesh_2d(2, SH_SHARDS // 2,
+                                    devices=mesh.devices)):
+        flat = ShardedFlatIndex(mesh=grid, dim=SVC_DIM,
+                                capacity_per_shard=cap)
+        for s in range(0, SVC_N, 100_000):
+            flat.insert(range(s, min(s + 100_000, SVC_N)), x[s:s + 100_000])
+        for i in np.nonzero(~live)[0]:
+            flat.delete(int(i))
+        answers.append(flat.search_batch(queries, K))
+        if grid is mesh:
+            qps = median_qps(torch, lambda q: flat.search_batch(q, K),
+                             batches)
+            with uncounted():
+                fold_err(kernels, "l2_topk", check_l2_calls(
+                    torch, say, "sharded flat",
+                    lambda: flat.search_batch(queries, K), torch.float32))
+        del flat
+    same_answer("2 x 2 mesh ShardedFlatIndex", answers[1], answers[0])
+    fd, ids = answers[0]
+    with uncounted():
+        table = torch.from_numpy(x).to(dev)
+        q_dev = torch.from_numpy(queries).to(dev)
+        wd, ws = exact_search(q_dev, table, torch.from_numpy(live).to(dev),
+                              K + 1)
+        err = check_topk("sharded flat against the single-device f32 scan",
+                         torch.from_numpy(fd.astype(np.float64) ** 2),
+                         torch.from_numpy(ids), wd, ws, group=K,
+                         scale=((q_dev * q_dev).sum(-1)
+                                + (table * table).sum(-1).max()).cpu()
+                         .numpy())
+        del table
+    same = ids == ws[:, :K].cpu().numpy()
+    dist_err = float(np.abs(fd - np.sqrt(np.maximum(
+        wd[:, :K].cpu().numpy(), 0)))[same].max())
+    if dist_err > 1e-5:
+        raise AssertionError(f"sharded flat: distance error {dist_err}")
+    say(f"ShardedFlatIndex, {SH_SHARDS} shards of {cap} rows on one card: "
+        f"{qps:.1f} QPS at B = {len(queries)}; ids equal to the "
+        f"single-device f32 scan between apart values, distances within "
+        f"{dist_err:.2e} (squares: max abs err {err}); the 2 x 2 mesh "
+        "answers the same")
+    return qps, answers[0]
+
+
+def sharded_ivf(torch, say, mesh, x, live, queries, truth, batches):
+    """Phase 7b, b: ShardedIVF (SH_IVF_CELLS cells, n_probe SH_IVF_PROBE):
+    build, recall against the sharded f32 scan, and SH_CHECK_B answers
+    equal to each shard's own answer merged on the host; the rows that the
+    default max_list (twice the mean shard-cell) leaves out of the lists,
+    and the recall of a rebuild whose max_list holds every row. Returns
+    its numbers."""
+    from vector_db_tpu_torch.index.ivf import _ivf_search_batch
+    from vector_db_tpu_torch.parallel.sharded import ShardedIVF
+
+    cap = SVC_N // SH_SHARDS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf = ShardedIVF(mesh=mesh, dim=SVC_DIM, capacity_per_shard=cap,
+                     k_cells=SH_IVF_CELLS)
+    ivf.build(range(SVC_N), x)
+    for i in np.nonzero(~live)[0]:
+        ivf.delete(int(i))
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    got = ivf.search_batch(queries, K, n_probe=SH_IVF_PROBE)
+    out["recall"] = recall_at(got[1], truth)
+    out["qps"] = median_qps(torch, lambda q: ivf.search_batch(
+        q, K, n_probe=SH_IVF_PROBE), batches)
+    listed = sum(int((lst >= 0).sum()) for lst in ivf._lists)
+    listed_live = sum(
+        int(((lst >= 0) & ivf._valid[s][lst.clamp_min(0).long()]).sum())
+        for s, lst in enumerate(ivf._lists))
+    out.update(max_list=ivf.max_list, listed=listed, listed_live=listed_live,
+               live=int(live.sum()), dropped=SVC_N - listed,
+               largest_fill=int(ivf.cell_fill.max()))
+    qc = torch.from_numpy(queries[:SH_CHECK_B]).to(mesh.devices[0])
+    parts = [_ivf_search_batch(ivf._centroids[s], ivf._lists[s], ivf._emb[s],
+                               ivf._valid[s], qc, None, SH_IVF_PROBE, K)
+             for s in range(SH_SHARDS)]
+    pd = np.concatenate([p[0].cpu().numpy() for p in parts], 1)
+    pg = np.concatenate([np.where(p[1].cpu().numpy() >= 0,
+                                  p[1].cpu().numpy() + s * cap, -1)
+                         for s, p in enumerate(parts)], 1)
+    order = np.argsort(pd, axis=1, kind="stable")[:, :K]
+    md, mg = np.take_along_axis(pd, order, 1), np.take_along_axis(pg, order, 1)
+    same_answer("ShardedIVF against its shards' own answers merged",
+                ivf.search_batch(queries[:SH_CHECK_B], K,
+                                 n_probe=SH_IVF_PROBE),
+                (np.where(mg >= 0, np.sqrt(np.maximum(md, 0)),
+                          np.inf).astype(np.float32),
+                 np.where(mg >= 0, ivf._id_of_gslot[np.maximum(mg, 0)], -1)))
+    del ivf
+    full = ShardedIVF(mesh=mesh, dim=SVC_DIM, capacity_per_shard=cap,
+                      k_cells=SH_IVF_CELLS, max_list=out["largest_fill"])
+    full.build(range(SVC_N), x)
+    for i in np.nonzero(~live)[0]:
+        full.delete(int(i))
+    if sum(int((lst >= 0).sum()) for lst in full._lists) != SVC_N:
+        raise AssertionError("ShardedIVF at the largest fill: a row left "
+                             "out of the lists")
+    out["recall_all_listed"] = recall_at(full.search_batch(
+        queries, K, n_probe=SH_IVF_PROBE)[1], truth)
+    del full
+    say(f"ShardedIVF ({SH_IVF_CELLS} cells, n_probe {SH_IVF_PROBE}): build "
+        f"{out['build_s']:.2f} s, recall@{K} {out['recall']:.4f} against the "
+        f"sharded f32 scan, {out['qps']:.1f} QPS; {SH_CHECK_B} answers equal "
+        f"to each shard's own merged on the host; max_list "
+        f"{out['max_list']} lists {out['listed']} of {SVC_N} rows "
+        f"({out['listed_live']} of the {out['live']} live ones; "
+        f"{out['dropped']} left out), the largest shard-cell was given "
+        f"{out['largest_fill']}; rebuilt with max_list "
+        f"{out['largest_fill']} (every row listed): recall@{K} "
+        f"{out['recall_all_listed']:.4f}")
+    return out
+
+
+def sharded_hnsw_modes(torch, say, kernels, h, ref, queries, truths,
+                       allowed, deleted):
+    """Phase 7b, c: the sharded HNSW's searches at B = len(queries), each
+    timed once and held to phase 6's unsharded HNSW at the same settings
+    (its calls uncounted): recall against each index's own f32 scan
+    (``truths``: sharded, sharded filtered, unsharded, unsharded
+    filtered), no sharded recall below the unsharded one less SH_SLACK;
+    sorted_topk at the sharded wide merges against its plain version.
+    Returns {mode: numbers}."""
+    from vector_db_tpu_torch.index import wide_beam
+    from vector_db_tpu_torch.ops.cuda.sorted_topk import (
+        sorted_topk, sorted_topk_plain)
+
+    wide = dict(ef=WIDE_EF, frontier=WIDE_F, steps=WIDE_T)
+    modes = {f"classic_ef{ef}": (
+        lambda q, ef=ef: h.search_batch(q, K, ef=ef),
+        lambda q, ef=ef: ref.search_batch(q, K, ef=ef, bucket=False))
+        for ef in SH_CLASSIC_EFS}
+    modes.update({
+        "filtered_ef50": (
+            lambda q: h.search_batch(q, K, ef=50, filter_ids=allowed),
+            lambda q: ref.search_batch(q, K, ef=50, filter_ids=allowed,
+                                       bucket=False)),
+        "wide": (lambda q: h.search_batch_wide(q, K, **wide),
+                 lambda q: ref.search_batch_wide(q, K, bucket=False, **wide)),
+        "wide_merge_kernel": (
+            lambda q: h.search_batch_wide(q, K, merge_kernel=True, **wide),
+            lambda q: ref.search_batch_wide(q, K, merge_kernel=True,
+                                            bucket=False, **wide)),
+        "beam": (lambda q: h.search_batch_beam(q, K, **SH_BEAM),
+                 lambda q: ref.search_batch_beam(q, K, bucket=False,
+                                                 **SH_BEAM)),
+    })
+
+    def timed(call):
+        call(queries[:8])                   # warm: the mirrors build
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ids = call(queries)
+        torch.cuda.synchronize()
+        return ids, len(queries) / (time.perf_counter() - t0)
+
+    rows = {}
+    for name, (call, unsharded) in modes.items():
+        f = name.startswith("filtered")
+        got, qps = timed(call)
+        if set(got.ravel().tolist()) & deleted:
+            raise AssertionError(f"sharded {name}: a deleted id")
+        if f and not set(got[got >= 0].tolist()) <= allowed:
+            raise AssertionError(f"sharded {name}: outside the filter")
+        with uncounted():
+            ref_got, ref_qps = timed(unsharded)
+        rows[name] = {"recall": recall_at(got, truths[int(f)]), "qps": qps,
+                      "unsharded_recall": recall_at(ref_got, truths[2 + f]),
+                      "unsharded_qps": ref_qps}
+        if rows[name]["recall"] < rows[name]["unsharded_recall"] - SH_SLACK:
+            raise AssertionError(f"sharded {name}: {rows[name]}")
+    with uncounted():
+        calls = captured(wide_beam, "sorted_topk", lambda: h.search_batch_wide(
+            queries, K, merge_kernel=True, **wide))
+        err = 0.0
+        for args, opts in calls:
+            d, v, topk = args[:3]
+            err = max(err, check_sorted(
+                "sharded wide: sorted_topk", sorted_topk(*args, **opts),
+                sorted_topk_plain(d, v, topk + 1)))
+    fold_err(kernels, "sorted_topk", err)
+    say(f"ShardedHNSW searches at B = {len(queries)}, recall@{K} against "
+        f"the f32 scan of each index's rows, QPS of one timed call (host "
+        f"clock), beside phase 6's unsharded HNSW at the same settings "
+        f"(wide {wide}, beam {SH_BEAM}, ef and k unrounded): "
+        + "; ".join(f"{n}: {r['recall']:.4f} at {r['qps']:.1f} QPS "
+                    f"(unsharded {r['unsharded_recall']:.4f} at "
+                    f"{r['unsharded_qps']:.1f})" for n, r in rows.items())
+        + f"; floor: the unsharded recall less {SH_SLACK}; sorted_topk on "
+        f"the sharded wide call's {len(calls)} merges against "
+        f"sorted_topk_plain: max abs err {err}")
+    return rows
+
+
+def sharded_service(torch, say, x, queries, batches):
+    """Phase 7b, d: the sharded-hnsw service at SVC_SMALL_N rows on every
+    visible card (capacity SVC_SMALL_N), fed in batches of SVC_BATCH:
+    equal to the direct index call, the single query to the batch's row,
+    recall against the f32 scan, and the same answers after a restart.
+    Returns its numbers."""
+    import tempfile
+    from pathlib import Path
+
+    from vector_db_tpu_torch.ops.exact import exact_search
+    from vector_db_tpu_torch.services.indexing_service import IndexingService
+    from vector_db_tpu_torch.storage import InMemoryNodeStorage
+    from vector_db_tpu_torch.types import Node
+
+    nodes = [Node(id=i, embedding=x[i], metadata={"tag": i % SVC_TAGS})
+             for i in range(SVC_SMALL_N)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = svc_config(tmp / "sharded.yaml", tmp / "sharded",
+                         capacity=SVC_SMALL_N, type="sharded-hnsw")
+        storage = InMemoryNodeStorage()
+        svc = IndexingService(storage=storage, config_path=cfg,
+                              index_file=str(tmp / "sharded.npz"))
+        t0 = time.perf_counter()
+        for s in range(0, SVC_SMALL_N, SVC_BATCH):
+            svc.insert_nodes(nodes[s:s + SVC_BATCH])
+        svc.wait_for_flush()
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        got = svc.search_batch(queries, K)
+        single = [n.id for n, _ in svc.search(queries[0], k=K)]
+        dev = svc.index.mesh.devices[0]
+        with uncounted():
+            same_answer("sharded-hnsw service", got,
+                        svc.index.search_batch(queries, K, ef=50))
+            _, slots = exact_search(
+                torch.from_numpy(queries).to(dev),
+                torch.from_numpy(x[:SVC_SMALL_N]).to(dev),
+                torch.ones(SVC_SMALL_N, dtype=torch.bool, device=dev), K)
+        if single != [int(v) for v in got[1][0] if v >= 0]:
+            raise AssertionError("sharded-hnsw service: the single query "
+                                 "differs from the batch's row")
+        out = {"ingest_docs_s": SVC_SMALL_N / ingest_s,
+               "qps": median_qps(torch, lambda q: svc.search_batch(q, K),
+                                 batches),
+               "recall": recall_at(got[1], slots.cpu().numpy()),
+               "shards": svc.index.n_shards}
+        svc.force_save_index()
+        t0 = time.perf_counter()
+        again = IndexingService(storage=storage, config_path=cfg,
+                                index_file=str(tmp / "sharded.npz"))
+        out["restart_s"] = time.perf_counter() - t0
+        if not again.is_index_loaded() or again.get_index_size() != \
+                SVC_SMALL_N:
+            raise AssertionError("sharded-hnsw service: restart")
+        same_answer("sharded-hnsw service after a restart",
+                    again.search_batch(queries, K), got)
+    say(f"sharded-hnsw service ({SVC_SMALL_N} x {SVC_DIM}, {out['shards']} "
+        f"shard(s), one a visible card): ingest "
+        f"{out['ingest_docs_s']:.1f} docs/s in batches of {SVC_BATCH} (each "
+        f"past the threshold saves synchronously); {out['qps']:.1f} QPS at "
+        f"B = {len(queries)} (ef 50), recall@{K} {out['recall']:.4f} "
+        f"against the f32 scan; equal to the direct index call, the single "
+        f"query to the batch's row; restart {out['restart_s']:.2f} s, the "
+        "same answers after it")
+    return out
+
+
+def phase_sharding(torch, kernels, card, base):
+    """Phase 7b: the sharded indexes at config.yaml's deployment, SH_SHARDS
+    shards on the one card (``make_mesh(devices=[cuda:0] * 4)``, each a
+    quarter of the rows): ShardedFlatIndex against the single-device f32
+    scan and the 2 x 2 mesh against the 1-D one; ShardedIVF; ShardedHNSW
+    through bulk_build, streamed inserts and deletes as the service's
+    deployment feeds phase 6, its searches beside phase 6's unsharded
+    HNSW on the same rows at the same settings, save and reload, profiles;
+    then the sharded-hnsw service. ``base``: phase 6's index, rows,
+    queries and deleted ids."""
+    import tempfile
+    from pathlib import Path
+
+    from vector_db_tpu_torch.ops.exact import exact_search
+    from vector_db_tpu_torch.parallel.mesh import make_mesh
+    from vector_db_tpu_torch.parallel.sharded import ShardedHNSW
+
+    def say(msg):  # with the seconds since the phase began
+        log(f"{msg} (+{time.perf_counter() - t_phase:.1f} s) [{card}]")
+
+    t_phase = time.perf_counter()
+    x, queries, deleted, ref = (base["x"], base["queries"], base["deleted"],
+                                base["index"])
+    dev = ref.device
+    mesh = make_mesh(devices=[dev] * SH_SHARDS)
+    cap = SVC_N // SH_SHARDS
+    live = np.ones(SVC_N, bool)
+    live[sorted(deleted)] = False
+    allowed = set(range(3, SVC_N, SVC_TAGS)) - deleted      # tag == 3
+    rng = np.random.default_rng(9)
+    batches = [queries + 0.01 * rng.standard_normal(queries.shape).astype(
+        np.float32) for _ in range(5)]
+    # the sharded path: counts at 0 just before it
+    _reset_counts()
+    out = {}
+    out["flat_qps"], (_, truth) = sharded_flat(
+        torch, say, kernels, mesh, x, queries, live, batches)
+    with uncounted():
+        _, fs = exact_search(
+            torch.from_numpy(queries).to(dev), torch.from_numpy(x).to(dev),
+            torch.from_numpy(live & (np.arange(SVC_N) % SVC_TAGS == 3)).to(
+                dev), K)
+        _, ref_truth = ref.search_batch_scan(queries, K, mode="exact")
+        _, ref_ftruth = ref.search_batch_scan(queries, K, mode="exact",
+                                              filter_ids=allowed)
+    out["ivf"] = sharded_ivf(torch, say, mesh, x, live, queries, truth,
+                             batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_bulk = SVC_N - SVC_BATCHES * SVC_BATCH - SVC_SINGLE
+    h = ShardedHNSW(M=HNSW_M, ef_construction=HNSW_EFC, mesh=mesh,
+                    dim=SVC_DIM, capacity_per_shard=cap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h.bulk_build(range(n_bulk), x[:n_bulk])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    secs = []
+    for s in range(n_bulk, SVC_N - SVC_SINGLE, SVC_BATCH):
+        t0 = time.perf_counter()
+        h.insert(range(s, s + SVC_BATCH), x[s:s + SVC_BATCH])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    h.insert(range(SVC_N - SVC_SINGLE, SVC_N), x[SVC_N - SVC_SINGLE:])
+    t0 = time.perf_counter()
+    h.delete_batch(sorted(deleted))
+    torch.cuda.synchronize()
+    delete_s = time.perf_counter() - t0
+    if h.size != int(live.sum()):
+        raise AssertionError(f"ShardedHNSW: size {h.size}")
+    h.enable_wide(dims=120, seeds=SH_SEEDS)
+    say(f"ShardedHNSW ({SH_SHARDS} shards of {cap}, M {HNSW_M}, "
+        f"ef_construction {HNSW_EFC}): bulk_build of {n_bulk} rows "
+        f"{build_s:.2f} s; {SVC_BATCHES} inserts of {SVC_BATCH} "
+        f"{SVC_BATCHES * SVC_BATCH / sum(secs):.1f} docs/s (per batch "
+        f"{[round(t, 2) for t in secs]} s), then {SVC_SINGLE} more; "
+        f"delete_batch of {len(deleted)} {delete_s:.3f} s")
+    out["hnsw"] = {"build_s": build_s, "delete_s": delete_s,
+                   "insert_docs_s": SVC_BATCHES * SVC_BATCH / sum(secs)}
+    out["hnsw"]["modes"] = sharded_hnsw_modes(
+        torch, say, kernels, h, ref, queries,
+        (truth, fs.cpu().numpy(), ref_truth, ref_ftruth), allowed, deleted)
+    # one call each: the classic call's ~8,000 small ops make the
+    # profiler's own processing take tens of seconds a call
+    profile(torch, f"sharded classic ef 50 ({SH_SHARDS} shards, B = "
+            f"{len(queries)})", lambda: h.search_batch(queries, K, ef=50),
+            reps=1)
+    profile(torch, f"sharded wide, merge kernel ({SH_SHARDS} shards, B = "
+            f"{len(queries)})", lambda: h.search_batch_wide(
+                queries, K, ef=WIDE_EF, frontier=WIDE_F, steps=WIDE_T,
+                merge_kernel=True), reps=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "sharded.npz"
+        t0 = time.perf_counter()
+        h.save_index(path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        h2 = ShardedHNSW(M=HNSW_M, ef_construction=HNSW_EFC,
+                         mesh=make_mesh(devices=[dev] * SH_SHARDS),
+                         dim=SVC_DIM, capacity_per_shard=cap)
+        t0 = time.perf_counter()
+        h2.load_index(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        with uncounted():
+            same_answer("ShardedHNSW reload",
+                        h2.search_batch(queries, K, ef=50),
+                        h.search_batch(queries, K, ef=50))
+        del h2
+    counts = _counts()
+    _launched("sharded", counts, ("l2_topk", "sorted_topk"))
+    say(f"ShardedHNSW save_index {save_s:.2f} s ({nbytes} bytes), "
+        f"load_index into a fresh {SH_SHARDS}-shard index {load_s:.2f} s, "
+        f"the same ids and distances after it; launches of the sharded path "
+        f"(checks and unsharded calls uncounted) {counts}")
+    del h
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["service"] = sharded_service(torch, say, x, queries, batches)
+    return out
 
 
 def main() -> int:
@@ -2787,9 +3508,11 @@ def main() -> int:
     log(f"phase 5 ok on {card} ({time.perf_counter() - t0:.1f} s)")
     gc.collect()
     torch.cuda.empty_cache()
+    base = phase_services(torch, kernels, card)
     t0 = time.perf_counter()
-    phase_services(torch, kernels, card)
-    log(f"phase 6 ok on {card} ({time.perf_counter() - t0:.1f} s)")
+    phase_sharding(torch, kernels, card, base)
+    del base
+    log(f"phase 7b ok on {card} ({time.perf_counter() - t0:.1f} s)")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     if any(m == "vector_db_tpu" or m.startswith("vector_db_tpu.")

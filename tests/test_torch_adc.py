@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tests.torch_parity import assert_topk_parity, n, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.ops.pallas.adc_probe import (
     adc_probe_scores as jax_adc_probe,
 )
@@ -30,6 +31,8 @@ from vector_db_tpu_torch.ops.cuda.adc_scan import (
     adc_topk_plain,
 )
 from vector_db_tpu_torch.ops.distance import BIG
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _lut(rng, b, m, ksub):
@@ -252,3 +255,30 @@ def test_adc_topk_plain_biases_match_jax_pq_scan(residual):
     size = np.abs(np.asarray(want[0])).max()
     assert_topk_parity(n(d), ids, want[0], want[1], rtol=2.0 ** -16,
                        atol=1e-4, scale=size, extra=1)
+
+
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("k", [300, 700])   # 700 > valid rows
+def test_adc_topk_floor_passes_join_into_the_top_k(biased, k):
+    """A list past the kernel's as the card runs it: passes, each from the
+    last one's final (value, row) pair (``after``), join into the top-k
+    that one plain scan at k gives, the row and group terms and the pads
+    included. Passes of 128 here, the first at a floor before every row so
+    that each selects in (value, row) order as the kernel does; the card's
+    are of 2048 (held there by test_torch_cuda.py)."""
+    from vector_db_tpu_torch.ops.cuda import by_passes
+
+    lut, codes, valid = _scan_inputs(41, 700, 4, 16, 5)
+    rng = np.random.default_rng(42)
+    kw = {}
+    if biased:
+        kw = dict(row_bias=t(rng.random(700).astype(np.float32)),
+                  group_bias=t(rng.random((5, 10)).astype(np.float32)),
+                  group=70)
+    start = (t(np.full(5, -np.inf, np.float32)), t(np.full(5, -1, np.int32)))
+    got = by_passes(lambda after: adc_topk(
+        t(lut), t(codes), t(valid), 128,
+        after=start if after is None else after, **kw), k, 128)
+    want = adc_topk_plain(t(lut), t(codes), t(valid), k, **kw)
+    assert_topk_parity(*got, *want, rtol=0, atol=0)
+    assert (n(got[1])[:, int(valid.sum()):] == -1).all()

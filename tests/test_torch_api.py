@@ -24,6 +24,9 @@ from vector_db_tpu_torch.api.embedding_app import create_app as create_embedding
 from vector_db_tpu_torch.services.embedding_service import EmbeddingService
 from vector_db_tpu_torch.services.indexing_service import IndexingService
 from vector_db_tpu_torch.services.storage_service import StorageService
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture

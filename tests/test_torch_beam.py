@@ -31,10 +31,13 @@ import pytest
 import torch
 
 from tests.torch_parity import n, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.index import wide_beam as JWB
 from vector_db_tpu.index.hnsw import HNSW as JaxHNSW
 from vector_db_tpu_torch.index import wide_beam as WB
 from vector_db_tpu_torch.index.hnsw import HNSW
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, DIM, M = 4000, 48, 8
 

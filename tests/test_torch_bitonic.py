@@ -14,12 +14,15 @@ import pytest
 import torch
 
 from tests.torch_parity import n, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.ops.pallas.bitonic_merge import sorted_topk as jax_sorted_topk
 from vector_db_tpu_torch.index.wide_beam import _aug_scores
 from vector_db_tpu_torch.ops.cuda.sorted_topk import (
     sorted_topk,
     sorted_topk_plain,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BIG = np.float32(3.0e38)
 

@@ -1,5 +1,6 @@
-"""A CPU rehearsal of chip_smoke.py's phase 6 (the port's services at the
-config.yaml deployment) and of the new parts of phases 4 and 5 (the IVF
+"""A CPU rehearsal of chip_smoke.py's phases 6 and 7 (the port's services,
+autotune and the sharded indexes at the config.yaml deployment) and of the
+new parts of phases 4 and 5 (the IVF
 residual projection and full scans; the HNSW PQ / RP traversals, the
 PQ-scored wide beam, the inline tables and the pool-free beam) at a tiny
 size, so a broken phase shows before a chip call: the phases' sizes cut
@@ -23,15 +24,20 @@ from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
 from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
 from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
 from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SIZES = dict(SVC_N=5100, SVC_DIM=32, SVC_QUERIES=64, SVC_BATCH=100,
              SVC_SINGLE=3, SVC_DELETE=10, SVC_SCAN_THRESHOLD=32,
              SVC_WIDE_B=16, SVC_SINGLE_Q=5, SVC_MIN_SIZE=1024,
              SVC_SMALL_N=2000, SVC_IVF_K=16, SVC_PQ_M=8, HNSW_EFC=64,
              HNSW_M=8, SVC_WIDE_FLOOR=0.9, SVC_FULL_ROWS=300,
+             SVC_FULL_CAP=1275,
              SVC_HTTP={"embed": 2, "batch_docs": 1, "batch_docs_size": 5,
                        "search": 3, "search_batch": 1, "health": 2,
-                       "stats": 1})
+                       "stats": 1},
+             AT_SAMPLE=32, AT_BATCHES=(64, 16, 1), AT_SINGLE_Q=5)
 
 
 def _counting(mp, module, name, wrapper, bf16=False):
@@ -70,14 +76,16 @@ def test_phase_services_rehearsal(monkeypatch, capsys):
     _counting(monkeypatch, port_ivf, "adc_topk", adc_topk)
 
     kernels = {}
-    chip_smoke.phase_services(torch, kernels, "card, 700 W")
+    base = chip_smoke.phase_services(torch, kernels, "card, 700 W")
     out = capsys.readouterr().out
     assert "services summary" in out and "[card, 700 W]" in out
+    assert base["index"].size > 0 and len(base["deleted"]) > 0
     bare = [line for line in out.strip().splitlines()
             if not line.endswith("[card, 700 W]")]
     assert not bare, bare
-    assert l2_topk.launches > 0 and l2_topk.launches_bf16 > 0
-    assert sorted_topk.launches > 0 and adc_probe_scores.launches > 0
+    # each path checks its own counts; the last, phase 7a's IVF-PQ service
+    # with autotune, leaves its own
+    assert adc_topk.launches > 0 and adc_probe_scores.launches > 0
     # each kernel held against its plain version at the routes' inputs
     assert set(kernels) == {"l2_topk", "l2_topk_bf16", "sorted_topk",
                             "adc_probe", "adc_topk"}
@@ -87,7 +95,11 @@ def test_phase_services_rehearsal(monkeypatch, capsys):
                  "service wide route B = 1: sorted_topk",
                  "ivf service: adc_probe", "at the reference's widths",
                  "ivf service at n_probe = ivf_k", "ivf rp service",
-                 "hnsw rp service", "hnsw pq service", "hnsw beam service"):
+                 "hnsw rp service", "hnsw pq service", "hnsw beam service",
+                 "phase 6 ok", "autotune table b8@0.95:",
+                 "autotune table b64@0.95/sel0.1:",
+                 "autotune ground truth: l2_topk", "autotuned HNSW service",
+                 "autotuned IVF-PQ service", "phase 7a ok"):
         assert line in out, line
     assert np.isfinite(chip_smoke.SCAN_FLOOR)
 
@@ -207,3 +219,50 @@ def test_phase_hnsw_modes_rehearsal(monkeypatch, capsys):
     chip_smoke.hnsw_persist(torch, idx, x, queries)
     assert "search_batch_pq and search_batch_rp ids" in \
         capsys.readouterr().out
+
+
+def test_phase_sharding_rehearsal(monkeypatch, capsys):
+    """Phase 7b on a small corpus: the sharded flat index against the
+    single-device scan and the 2 x 2 mesh, the sharded IVF's merge check,
+    the sharded HNSW's build, inserts, deletes and searches beside an
+    unsharded HNSW (as phase 6 leaves it), save and reload, the sorted_topk
+    check, and the sharded-hnsw service."""
+    if torch.cuda.is_available():
+        pytest.skip("a CPU rehearsal: on a card, chip_smoke.py runs it")
+    import random
+
+    from vector_db_tpu_torch import HNSW, datasets
+
+    _card_stubs(monkeypatch)
+    for name, value in dict(SIZES, SH_IVF_CELLS=16, SH_IVF_PROBE=4,
+                            SH_CHECK_B=10, SH_SEEDS=64, WIDE_EF=128,
+                            WIDE_F=32, WIDE_T=6, SH_CLASSIC_EFS=(50, 64),
+                            SH_BEAM=dict(frontier=32, steps=6,
+                                         hist=2)).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(isvc, "config_device",
+                        lambda spec: torch.device("cpu"))
+    _counting(monkeypatch, port_exact, "l2_topk", l2_topk, bf16=True)
+    _counting(monkeypatch, wide_beam, "sorted_topk", sorted_topk)
+    n, dim = SIZES["SVC_N"], SIZES["SVC_DIM"]
+    data = datasets.embedding_like(n + SIZES["SVC_QUERIES"], dim, seed=2)
+    x, queries = data[:n], np.ascontiguousarray(data[n:])
+    ref = HNSW(M=8, ef_construction=64, rng=random.Random(42),
+               capacity=8192, device="cpu")
+    ref.bulk_build(range(n), x)
+    deleted = {5, 77, 4000}
+    for i in deleted:
+        ref.delete_node(i)
+    ref.enable_wide(dims=16, seeds=256)
+    kernels = _kernels()
+    out = chip_smoke.phase_sharding(torch, kernels, "card, 700 W", {
+        "index": ref, "x": x, "queries": queries, "deleted": deleted})
+    text = capsys.readouterr().out
+    for line in ("ShardedFlatIndex, 4 shards", "sharded flat: l2_topk",
+                 "the 2 x 2 mesh answers the same", "ShardedIVF (16 cells",
+                 "ShardedHNSW (4 shards", "ShardedHNSW searches at B = 64",
+                 "classic_ef64:", "wide_merge_kernel:", "beam:",
+                 "ShardedHNSW save_index", "sharded-hnsw service (2000"):
+        assert line in text, line
+    assert out["service"]["shards"] == 1
+    assert kernels["sorted_topk"]["max_abs_err"] == 0.0

@@ -453,30 +453,138 @@ def test_adc_topk_lists_past_shared_memory_raise(cuda):
         adc_topk(lut, codes, valid, 2049)
 
 
-def test_ivf_full_scans_bound_fetch_on_cuda(cuda):
-    """On the card each full scan runs its kernel: a fetch past its lists
-    raises (adc_topk 2048, the flat RP route's l2_topk 256), one within
-    them launches the kernel."""
+def test_ivf_full_scans_answer_at_every_fetch_on_cuda(cuda):
+    """On the card each full scan runs its kernel at every fetch: one
+    launch up to its lists (adc_topk 2048, the flat RP route's l2_topk
+    256), passes past them (2560: two launches of adc_topk; top_k 100,
+    fetch 400: two of l2_topk bf16); the answer equals the same index
+    state's on the CPU."""
     from vector_db_tpu_torch.index.ivf import IvfIndex
 
     rng = np.random.default_rng(9)
     x = rng.standard_normal((3000, 32)).astype(np.float32)
     q = rng.standard_normal((4, 32)).astype(np.float32)
-    ivf = IvfIndex(k=4, device=cuda)
-    ivf.build_arrays(range(3000), x, seed=0, iters=5)
-    ivf.enable_pq(chunks=8, ksub=16)
-    ivf.enable_rp(dims=16)
-    ivf._rp_res_ratio = 1.0            # the flat RP route
+    cpu = IvfIndex(k=4, device="cpu")
+    cpu.build_arrays(range(3000), x, seed=0, iters=5)
+    cpu.enable_pq(chunks=8, ksub=16)
+    cpu.enable_rp(dims=16)
+    gpu = IvfIndex(k=4, device=cuda)
+    gpu.load_state(cpu._store.emb.numpy(), cpu._store.valid.numpy(),
+                   cpu._store.export_id_map(), cpu.centroids,
+                   cpu.inverted_lists,
+                   codebooks=cpu._pq.codebooks.numpy(),
+                   rotation=None, residual=cpu._pq_residual,
+                   codes=cpu._codes_np,
+                   sx=cpu._sx_np, rp_proj=cpu._rp_proj,
+                   rp_mu=cpu._rp_mu_dev.numpy(), rp_res_ratio=1.0)
+    cpu._rp_res_ratio = 1.0            # the flat RP route
+    for kw, counter, launches in (
+            (dict(pq=True, fetch=2048), "adc", 1),
+            (dict(pq=True, fetch=2560), "adc", 2),
+            (dict(rp=True, fetch=256), "l2", 1),
+            (dict(rp=True, top_k=100), "l2", 2)):   # fetch 400
+        kw = {"n_probe": 4, "top_k": 10, **kw}
+        before = (adc_topk.launches if counter == "adc"
+                  else l2_topk.launches_bf16)
+        got = gpu.search_batch(q, **kw)
+        after = (adc_topk.launches if counter == "adc"
+                 else l2_topk.launches_bf16)
+        assert after - before == launches, kw
+        assert_topk_parity(*got, *cpu.search_batch(q, **kw), rtol=1e-5,
+                           atol=1e-4)
+
+
+def _start(b, dev):
+    """A floor before every row."""
+    return (torch.full((b,), -float("inf"), device=dev),
+            torch.full((b,), -1, dtype=torch.int32, device=dev))
+
+
+def _floor(lists, j):
+    """Each query's pair at column j: a floor in the values of the scan
+    that gave them (the kernel's and the plain version's may differ in the
+    last bits, so each is floored at its own)."""
+    return lists[0][:, j].contiguous(), lists[1][:, j].contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_topk_floor_matches_plain(cuda, dtype):
+    """A floored launch against the floored plain version, the floor at a
+    run of tied rows (duplicates) so that it splits the run; then the
+    exact scan at k = 600 (three launches of 256, each from the last
+    one's final pair) against the plain scan at k."""
+    from vector_db_tpu_torch.ops.exact import exact_search
+
+    rng = np.random.default_rng(12)
+    x = _tensor(rng, (20000 + 37, 96), cuda)
+    x[100:400] = x[7]                      # a run of 301 tied rows
+    valid = torch.ones(x.shape[0], dtype=torch.bool, device=cuda)
+    valid[::11] = False
+    q = x[7:8].repeat(5, 1) + 0.01 * _tensor(rng, (5, 96), cuda)
+    x_sq = (x * x).sum(-1)
+    tab = x.to(dtype)
+    first = l2_topk(q, tab, valid, 256, x_sq=x_sq)
+    plain = l2_topk_plain(q, tab, valid, 256, x_sq, after=_start(5, cuda))
+    assert torch.equal(first[1], plain[1])   # both in (value, row) order
+    before = l2_topk.launches
+    got = l2_topk(q, tab, valid, 256, x_sq=x_sq, after=_floor(first, 100))
+    assert l2_topk.launches == before + 1
+    want = l2_topk_plain(q, tab, valid, 257, x_sq, after=_floor(plain, 100))
+    assert_topk_parity(*got, *want, rtol=1e-5, atol=1e-4,
+                       scale=_terms(q, x_sq), extra=1)
+    assert_topk_parity(*l2_topk(q, tab, valid, 256, x_sq=x_sq,
+                                after=_start(5, cuda)), *first, rtol=0,
+                       atol=0)
+    if dtype == torch.float32:
+        before = l2_topk.launches
+        got = exact_search(q, x, valid, 600, x_sq=x_sq)
+        assert l2_topk.launches == before + 3
+        want = l2_topk_plain(q, x, valid, 601, x_sq)
+        assert_topk_parity(*got, *want, rtol=1e-5, atol=1e-4,
+                           scale=_terms(q, x_sq), extra=1)
+
+
+@pytest.mark.parametrize("biased", [False, True])
+def test_adc_topk_floor_matches_plain(cuda, biased):
+    """A floored launch against the floored plain version, the floor split
+    by a run of tied rows (the smallest value, so that both scans list
+    them first, in row order); then adc_search at top_k 2500 (two launches
+    of 2048) against the plain scan at 2500."""
+    from vector_db_tpu_torch.index.pq import PQCodec
+
+    rng = np.random.default_rng(14 + biased)
+    lut, codes, valid, rb, gb = _bias_inputs(rng, 9, 30000 + 11, 16, 489,
+                                             cuda)
+    lut[:, :, 0] = 0.0
+    codes[200:2600] = 0                  # a run of 2,400 tied rows
+    valid[200:2600] = True
+    kw = (dict(row_bias=rb, group_bias=gb, group=489) if biased else {})
+    if biased:
+        rb[200:2600] = rb.min() - 1.0
+        kw["group_bias"] = torch.zeros_like(gb)
+    first = adc_topk(lut, codes, valid, 2048, **kw)
+    plain = adc_topk_plain(lut, codes, valid, 2048, after=_start(9, cuda),
+                           **kw)
+    assert torch.equal(first[1][:, :1001], plain[1][:, :1001])
     before = adc_topk.launches
-    ivf.search_batch(q, n_probe=4, top_k=10, pq=True, fetch=2048)
+    got = adc_topk(lut, codes, valid, 2048, after=_floor(first, 1000), **kw)
     assert adc_topk.launches == before + 1
-    with pytest.raises(ValueError, match="adc_topk"):
-        ivf.search_batch(q, n_probe=4, top_k=10, pq=True, fetch=2049)
-    before = l2_topk.launches_bf16
-    ivf.search_batch(q, n_probe=4, top_k=10, rp=True, fetch=256)
-    assert l2_topk.launches_bf16 > before
-    with pytest.raises(ValueError, match="l2_topk"):
-        ivf.search_batch(q, n_probe=4, top_k=10, rp=True, fetch=257)
+    want = adc_topk_plain(lut, codes, valid, 2049,
+                          after=_floor(plain, 1000), **kw)
+    scale = lut.amax(-1).sum(-1) + (rb.abs().max() if biased else 0)
+    assert_topk_parity(*got, *want, rtol=1e-5, atol=1e-4, scale=scale,
+                       extra=1)
+    if not biased:
+        codec = PQCodec.from_arrays(rng.standard_normal(
+            (16, 256, 2)).astype(np.float32), device=cuda)
+        qs = rng.standard_normal((3, 32)).astype(np.float32)
+        before = adc_topk.launches
+        d, i = codec.adc_search(qs, codes, top_k=2500, valid=valid)
+        assert adc_topk.launches == before + 2
+        dw, iw = codec.adc_search(qs, codes, top_k=2501, valid=valid,
+                                  mode="gather")
+        assert_topk_parity(d, i, dw, iw, rtol=1e-5, atol=1e-4,
+                           scale=codec.adc_lut(qs).amax(-1).sum(-1), extra=1)
 
 
 def test_adc_topk_zero_biases_equal_unbiased(cuda):
@@ -959,3 +1067,143 @@ def test_flat_and_ivf_services_on_cuda(cuda, tmp_path, kind):
                                           filter_ids=None, pq=True,
                                           adc="pallas"))
         assert adc_probe_scores.launches > 0
+
+
+def _four_on(dev):
+    from vector_db_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[dev] * 4)
+
+
+def test_sharded_flat_and_ivf_on_cuda_match_cpu(cuda):
+    """Four shards on one card against four CPU shards over the same rows:
+    the flat index's l2_topk answers equal the plain scan's; the IVF on the
+    same centroids returns the same ids (no ties in this corpus)."""
+    from vector_db_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3000, 32)).astype(np.float32)
+    q = rng.standard_normal((40, 32)).astype(np.float32)
+    idx = []
+    for dev in (cuda, torch.device("cpu")):
+        flat = sharded.ShardedFlatIndex(mesh=_four_on(dev), dim=32,
+                                        capacity_per_shard=1024)
+        flat.insert(range(3000), x)
+        flat.delete(7)
+        idx.append(flat)
+    before = l2_topk.launches
+    dg, ig = idx[0].search_batch(q, 10)
+    assert l2_topk.launches == before + 4
+    dc, ic = idx[1].search_batch(q, 10)
+    assert_topk_parity(dg ** 2, ig, dc ** 2, ic, scale=70.0)
+    assert 7 not in ig
+    cpu = sharded.ShardedIVF(mesh=_four_on(torch.device("cpu")), dim=32,
+                             capacity_per_shard=1024, k_cells=16)
+    cpu.build(range(3000), x)
+    gpu = sharded.ShardedIVF(mesh=_four_on(cuda), dim=32,
+                             capacity_per_shard=1024, k_cells=16)
+    gpu.insert(range(3000), x)
+    gpu._centroids = [c.to(cuda) for c in cpu._centroids]
+    gpu._lists = [t.to(cuda) for t in cpu._lists]
+    for n_probe in (2, 16):
+        got = gpu.search_batch(q, 10, n_probe=n_probe)
+        want = cpu.search_batch(q, 10, n_probe=n_probe)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_hnsw_on_cuda_matches_cpu(cuda, tmp_path):
+    """ShardedHNSW with four shards on one card against four CPU shards:
+    bulk_build (knn_exact on l2_topk) and streamed inserts draw the same
+    levels and routing; on the CPU graph (saved and loaded on the card) the
+    classic, wide (sorted_topk merge) and beam searches return the CPU's
+    id sets on >= 95 % of the rows; deletes unlink on both alike."""
+    from vector_db_tpu_torch.datasets import embedding_like
+    from vector_db_tpu_torch.parallel import sharded
+
+    x = embedding_like(4000 + 64, 32, seed=6)
+    q = np.ascontiguousarray(x[4000:])
+    built = []
+    for dev in (cuda, torch.device("cpu")):
+        h = sharded.ShardedHNSW(M=8, ef_construction=64, mesh=_four_on(dev),
+                                dim=32, capacity_per_shard=1024)
+        h.bulk_build(range(3500), x[:3500])
+        h.insert(range(3500, 4000), x[3500:4000])
+        built.append(h)
+    gs, cs = built[0].host_state(), built[1].host_state()
+    np.testing.assert_array_equal(gs["levels"], cs["levels"])
+    np.testing.assert_array_equal(built[0]._id_of_gslot,
+                                  built[1]._id_of_gslot)
+    path = tmp_path / "cpu.npz"
+    built[1].save_index(path)
+    gpu = sharded.ShardedHNSW(M=8, ef_construction=64, mesh=_four_on(cuda),
+                              dim=32, capacity_per_shard=1024)
+    gpu.load_index(path)
+    cpu = built[1]
+    for h in (gpu, cpu):
+        h.delete_batch([3, 500, 3999])
+        h.enable_wide(dims=None, seeds=128)
+    gs, cs = gpu.host_state(), cpu.host_state()
+    np.testing.assert_array_equal(gs["neighbors"], cs["neighbors"])
+    np.testing.assert_array_equal(gs["entry"], cs["entry"])
+    before = sorted_topk.launches
+    for call in (lambda h: h.search_batch(q, 10, ef=64),
+                 lambda h: h.search_batch_wide(q, 10, ef=128, frontier=32,
+                                               steps=8, merge_kernel=True),
+                 lambda h: h.search_batch_beam(q, 10, frontier=32,
+                                               steps=8)):
+        a, b = call(gpu)[1], call(cpu)[1]
+        assert np.mean([set(u) == set(v) for u, v in zip(a, b)]) >= 0.95
+        assert not {3, 500, 3999} & set(a.ravel().tolist())
+    assert sorted_topk.launches > before
+
+
+def test_autotune_and_sharded_services_on_cuda(cuda, tmp_path):
+    """The hnsw service with index.autotune and the sharded-hnsw service
+    (one shard a visible card) with device: cuda: calibrated decisions
+    for B = 1 and B = 64 whose routed answers meet their targets less
+    0.02 against the exact scan, and the sharded service's answers equal
+    to its direct index call, after a restart too."""
+    from vector_db_tpu_torch.datasets import embedding_like
+    from vector_db_tpu_torch.services.indexing_service import IndexingService
+    from vector_db_tpu_torch.storage import InMemoryNodeStorage
+    from vector_db_tpu_torch.types import Node
+
+    x = embedding_like(6000 + 64, 32, seed=7)
+    q = np.ascontiguousarray(x[6000:])
+    nodes = [Node(id=i, embedding=x[i]) for i in range(6000)]
+    cfg = _svc_config(tmp_path, wide={"dims": 0, "seeds": 256,
+                                      "min_size": 1024},
+                      autotune={"sample": 64, "k": 10, "min_size": 1024,
+                                "ef_ladder": [64, 256]})
+    svc = IndexingService(storage=InMemoryNodeStorage(), config_path=cfg,
+                          index_file=str(tmp_path / "at.npz"))
+    svc.insert_nodes(nodes)
+    _, truth = svc.index.search_batch_scan(q, 10, mode="exact")
+    got = svc.search_batch(q, 10)
+    single = [n.id for n, _ in svc.search(q[0], k=10)]
+    decs = svc._autotune._decisions
+    assert [key[0] for key in decs] == [64, 8]
+    for dec, ids in zip(decs.values(), (got[1], np.asarray([single]))):
+        hits = np.mean([len(set(a) & set(b)) / 10
+                        for a, b in zip(ids.tolist(), truth.tolist())])
+        assert hits >= dec["target"] - 0.02, (dec, hits)
+    sh_cfg = str(tmp_path / "sharded.yaml")
+    import yaml
+
+    conf = yaml.safe_load(open(cfg))
+    conf["index"] = {"M": 8, "ef_construction": 64, "flush_threshold": 1000,
+                     "type": "sharded-hnsw"}
+    open(sh_cfg, "w").write(yaml.safe_dump(conf))
+    storage = InMemoryNodeStorage()
+    sh = IndexingService(storage=storage, config_path=sh_cfg,
+                         index_file=str(tmp_path / "sh.npz"))
+    assert sh.index.n_shards == torch.cuda.device_count()
+    for s in range(0, 6000, 2000):
+        sh.insert_nodes(nodes[s:s + 2000])
+    got = sh.search_batch(q, 10)
+    _same(got, sh.index.search_batch(q, 10, ef=50))
+    sh.force_save_index()
+    again = IndexingService(storage=storage, config_path=sh_cfg,
+                            index_file=str(tmp_path / "sh.npz"))
+    _same(again.search_batch(q, 10), got)

@@ -9,8 +9,11 @@ import pytest
 import torch
 
 from tests.torch_parity import assert_topk_parity, n, recall, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.ops import exact as jx
 from vector_db_tpu_torch.ops import exact as px
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _low_rank(seed, nrows, dim, b, rank=24, noise=0.01):

@@ -9,12 +9,15 @@ import pytest
 import torch
 
 from tests.torch_parity import assert_topk_parity, recall
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.datasets import embedding_like
 from vector_db_tpu.index.flat import FlatIndex as JaxFlat
 from vector_db_tpu.storage import InMemoryNodeStorage
 from vector_db_tpu.types import Node
 from vector_db_tpu_torch.index.flat import FlatIndex
 from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PRECISIONS = ["f32", "bf16", "blocksel", "blocksel2p"]
 
@@ -111,7 +114,8 @@ def test_more_k_than_rows_and_empty():
 
 def test_k_above_kernel_limit_raises():
     """The kernel wrapper keeps its k <= 256 limit on every device; the
-    index branches on k to the tiled plain scan above it and answers."""
+    index answers above it (on the CPU the tiled plain scan, on a CUDA
+    device passes of the kernel)."""
     x, q = _corpus(seed=6, nrows=300)
     port = FlatIndex(device="cpu")
     port.insert_nodes(_nodes(x))

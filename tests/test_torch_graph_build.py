@@ -15,12 +15,15 @@ import numpy as np
 import pytest
 
 from tests.torch_parity import assert_topk_parity, n, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.index.hnsw import _reverse_merge as jax_host_reverse_merge
 from vector_db_tpu.ops import graph_build as J
 from vector_db_tpu.ops.exact import knn_exact as jax_knn_exact
 from vector_db_tpu_torch.index.hnsw import _reverse_merge
 from vector_db_tpu_torch.ops import graph_build as P
 from vector_db_tpu_torch.ops.exact import knn_exact
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL, ATOL = 1e-5, 1e-4
 

@@ -27,6 +27,9 @@ from vector_db_tpu.index.hnsw import HNSW as JaxHNSW
 from vector_db_tpu_torch import datasets
 from vector_db_tpu_torch.index.hnsw import HNSW
 from vector_db_tpu_torch.types import Node
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, DIM, M, L_MAX = 4000, 48, 8, 4
 

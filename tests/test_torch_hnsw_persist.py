@@ -23,6 +23,9 @@ from vector_db_tpu.types import Node as JaxNode
 from vector_db_tpu_torch.index.hnsw import HNSW
 from vector_db_tpu_torch.storage import InMemoryNodeStorage, MMapNodeStorage
 from vector_db_tpu_torch.types import Node
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, DIM, M, L_MAX = 700, 16, 8, 4
 

@@ -28,6 +28,9 @@ from vector_db_tpu_torch.index.hnsw import HNSW
 from vector_db_tpu_torch.index.pq import _encode_scan
 from vector_db_tpu_torch.storage.mmap import MMapNodeStorage
 from vector_db_tpu_torch.types import Node
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, DIM, M = 1500, 32, 8
 

@@ -19,12 +19,15 @@ import torch
 
 import jax.numpy as jnp
 from tests.torch_parity import assert_topk_parity, recall
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 from vector_db_tpu.index.hnsw import HNSW as JaxHNSW
 from vector_db_tpu.ops.exact import block_select_search as jax_block_select
 from vector_db_tpu_torch.index.hnsw import HNSW
 from vector_db_tpu_torch.ops.exact import block_select_search
 from vector_db_tpu_torch.types import Node
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, DIM, B, K = 3000, 48, 64, 10
 RECALL_TOL = 0.005

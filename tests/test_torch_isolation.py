@@ -1,7 +1,8 @@
 """vector_db_tpu_torch runs without jax and without any module of the JAX
 package vector_db_tpu (FlatIndex, IVF-PQ, HNSW end to end with inserts and
-persistence, and the serving layer: StorageService, IndexingService and the
-app factory), and never falls back to the CPU when a GPU was asked for."""
+persistence, the serving layer: StorageService, IndexingService with
+autotune and sharded-hnsw, and the app factory; the sharded indexes), and
+never falls back to the CPU when a GPU was asked for."""
 
 import subprocess
 import sys
@@ -25,6 +26,9 @@ def test_port_never_imports_jax():
 
         import vector_db_tpu_torch as vt
 
+        # one CPU thread: beside parallel test workers a thread per core
+        # oversubscribes the cores
+        torch.set_num_threads(1)
         rng = np.random.default_rng(0)
         x = rng.standard_normal((300, 16)).astype(np.float32)
         for precision in ("f32", "bf16", "blocksel", "blocksel2p"):
@@ -139,6 +143,45 @@ def test_port_never_imports_jax():
 
             os.environ["VDB_TPU_WARMUP"] = "0"   # keep stdout to one line
             asyncio.run(drive())
+        # calibrated routing (services/autotune.py) and the sharded-hnsw
+        # service, then the sharded indexes on four CPU shards
+        svcs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, index in enumerate((
+                    {"autotune": {"sample": 8, "k": 3, "ef_ladder": [64],
+                                  "min_size": 16}},
+                    {"type": "sharded-hnsw"})):
+                cfg = Path(tmp) / f"c{i}.yaml"
+                cfg.write_text(yaml.safe_dump({
+                    "embedding": {"model": "fake-16", "dimension": 16},
+                    "device": "cpu",
+                    "index": {"M": 4, "ef_construction": 30,
+                              "flush_threshold": 8, **index},
+                    "vector_db": {"file_path": str(Path(tmp) / f"v{i}"),
+                                  "dimension": 16, "capacity": 256}}))
+                st = StorageService(str(Path(tmp) / f"v{i}"), dim=16,
+                                    capacity=256)
+                svc = isvc.IndexingService(storage=st.storage,
+                                           config_path=str(cfg))
+                st.save_many(nodes)
+                svc.insert_nodes(nodes)
+                assert svc.search(xe[3], 2)[0][0].id == 3
+                svcs.append(svc)
+        assert list(svcs[0]._autotune.stats()) == ["b8@0.95"]
+        assert svcs[1].index.n_shards == 1
+        mesh = vt.make_mesh(devices=["cpu"] * 4)
+        sh = vt.ShardedHNSW(M=4, ef_construction=30, mesh=mesh, dim=16,
+                            capacity_per_shard=64)
+        sh.bulk_build(range(100), xe[:100])
+        sh.insert(range(100, 120), xe[100:120])
+        sh.delete(5)
+        _, ids = sh.search_batch(xe[100:103], 2, ef=30)
+        assert (ids[:, 0] == [100, 101, 102]).all(), ids
+        sf = vt.ShardedIVF(mesh=vt.make_mesh_2d(2, 2, devices=["cpu"] * 4),
+                           dim=16, capacity_per_shard=64, k_cells=4)
+        sf.build(range(120), xe[:120])
+        assert (sf.search_batch(xe[:3], 2, n_probe=4)[1][:, 0]
+                == [0, 1, 2]).all()
         assert "jax" not in sys.modules, sorted(
             m for m in sys.modules if m.startswith("jax"))
         jax_pkg = sorted(m for m in sys.modules
@@ -165,6 +208,14 @@ def test_port_never_imports_jax():
                 assert "CUDA" in str(e)
             else:
                 raise AssertionError("HNSW(device='cuda') ran without a GPU")
+            for make in (vt.make_mesh, vt.ShardedFlatIndex, vt.ShardedHNSW):
+                try:
+                    make()
+                except RuntimeError as e:
+                    assert "CUDA" in str(e)
+                else:
+                    raise AssertionError(f"{make.__name__}() ran without "
+                                         "a GPU")
         print("isolated")
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -15,10 +15,13 @@ import numpy as np
 import pytest
 
 from tests.torch_parity import assert_topk_parity, recall
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.index.ivf import IvfIndex as JaxIvf
 from vector_db_tpu.storage import InMemoryNodeStorage
 from vector_db_tpu.types import Node
 from vector_db_tpu_torch.index.ivf import IvfIndex
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _nodes(x, start=0):

@@ -20,12 +20,15 @@ import pytest
 import torch
 
 from tests.torch_parity import recall
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.index.ivf import IvfIndex as JaxIvf
 from vector_db_tpu.index.ivf import _ivf_pq_scan_cells as jax_pq_scan
 from vector_db_tpu.storage import InMemoryNodeStorage
 from vector_db_tpu.types import Node
 from vector_db_tpu_torch.index import ivf as ivf_mod
 from vector_db_tpu_torch.index.ivf import IvfIndex
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _lowrank(n, dim=64, rank=8, seed=0):
@@ -108,7 +111,7 @@ def test_rp_routes_match_jax(route, spill):
     n_probe, ratio = ROUTES[route]
     if ratio is not None:
         ref._rp_res_ratio = port._rp_res_ratio = ratio
-    for fetch in (64, 300):     # 300: the l2 scan's plain branch (k > 256)
+    for fetch in (64, 300):     # 300: the l2 scan past 256 (k > 256)
         got = port.search_batch(q, n_probe=n_probe, top_k=10, rp=True,
                                 fetch=fetch)
         want = ref.search_batch(q, n_probe=n_probe, top_k=10, rp=True,
@@ -251,16 +254,58 @@ def test_pq_scan_matches_jax(case):
             assert set(ids[ids >= 0].tolist()) <= allowed
 
 
-def test_full_scan_fetch_bound_only_on_cuda():
-    """A full scan's fetch past its kernel's lists raises on a CUDA device
-    (where the kernel runs) and passes on the CPU (the plain scan)."""
-    from types import SimpleNamespace
+def _full_scan_case(route):
+    """(JAX index, port, queries, search kwargs) of a full scan whose fetch
+    runs past its kernel's lists: the flat RP route at top_k 100 (the
+    default fetch 400 > 256) or the PQ full scan at fetch 2560 (> 2048)."""
+    if route == "rp-flat":
+        data = _lowrank(3000 + 24, seed=21)
+        ref, port = _rp_pair(data[:3000], 16)
+        ref._rp_res_ratio = port._rp_res_ratio = 1.0
+        return ref, port, data[3000:], dict(n_probe=16, top_k=100, rp=True)
+    x = _gauss(3000, 32, 22)
+    ref, port = _pq_pair(x, 16, residual=True, spill=1)
+    return ref, port, _gauss(12, 32, 23), dict(n_probe=16, top_k=10,
+                                               pq=True, fetch=2560)
 
-    ivf_mod._check_fetch("the scan", 5000, 2048, torch.zeros(1))
-    card = SimpleNamespace(device=torch.device("cuda"))
-    ivf_mod._check_fetch("the scan", 2048, 2048, card)
-    with pytest.raises(ValueError, match="fetch=2049"):
-        ivf_mod._check_fetch("the scan", 2049, 2048, card)
+
+@pytest.mark.parametrize("route", ["rp-flat", "pq-scan"])
+def test_full_scans_answer_past_kernel_lists(route):
+    """Both full scans answer at a fetch above their kernel's lists, as the
+    JAX package does, with JAX's id sets and distances within 1e-5."""
+    ref, port, q, kw = _full_scan_case(route)
+    (dg, ig), (dw, iw) = port.search_batch(q, **kw), ref.search_batch(q, **kw)
+    assert ig.shape == iw.shape == (q.shape[0], kw["top_k"])
+    for r in range(q.shape[0]):
+        assert set(ig[r].tolist()) == set(iw[r].tolist()), r
+        order_g, order_w = np.argsort(ig[r]), np.argsort(iw[r])
+        np.testing.assert_allclose(dg[r][order_g], dw[r][order_w],
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["rp-flat", "pq-scan"])
+def test_full_scan_picks_kernel_or_plain_by_fetch(route, monkeypatch):
+    """On the CPU the full scans call the kernel's wrapper up to its lists
+    (256 for the flat route's l2_topk, 2048 for adc_topk) and the plain
+    version past them. On a CUDA tensor the wrapper launches the kernel,
+    and past its lists passes of it run (test_torch_cuda.py), so every
+    fetch answers on the card as here."""
+    from vector_db_tpu_torch.ops import exact as exact_mod
+
+    ref, port, q, kw = _full_scan_case(route)
+    mod, names = ((exact_mod, ("l2_topk", "l2_topk_plain"))
+                  if route == "rp-flat" else
+                  (ivf_mod, ("adc_topk", "adc_topk_plain")))
+    calls = []
+    for name in names:
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=real, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    limit = 256 if route == "rp-flat" else 2048
+    for fetch, want in ((limit, names[0]), (limit + 1, names[1])):
+        calls.clear()
+        port.search_batch(q, **{**kw, "fetch": fetch})
+        assert calls == [want], (fetch, calls)
 
 
 @pytest.mark.parametrize("residual", [True, False])

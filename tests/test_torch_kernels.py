@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tests.torch_parity import assert_topk_parity, n, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.ops.pallas.block_min import block_min_scan as jax_block_min
 from vector_db_tpu.ops.pallas.block_topm import (
     block_topm_scan as jax_block_topm,
@@ -23,6 +24,8 @@ from vector_db_tpu.ops.pallas.l2_topk import l2_topk as jax_l2_topk
 from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
 from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
 from vector_db_tpu_torch.ops.cuda.l2_topk import MAX_K, l2_topk
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _corpus(seed, nrows, dim, invalid_every=0, dup_rows=0):
@@ -187,3 +190,43 @@ def test_block_scans_reject_other_block_sizes():
         block_topm_scan(x[:1], x, t(np.zeros(256, np.float32)), block=64)
     with pytest.raises(ValueError, match="128"):
         block_min_scan(x[:1], x, t(np.zeros(256, np.float32)), block=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [MAX_K + 1, 600, 1300])   # 1300 > valid rows
+def test_l2_topk_floor_passes_join_into_the_top_k(dtype, k):
+    """A list past 256 as the card runs it: passes of 256, each from the
+    last one's final (value, row) pair (``after``), join into the top-k
+    that one plain scan at k gives, pads included. On the CPU each pass is
+    the plain version at its floor, the first at one before every row, so
+    that each selects in (value, row) order as the kernel does; on the card
+    the kernel at its floor is held against that (test_torch_cuda.py)."""
+    from vector_db_tpu_torch.ops.cuda import by_passes
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk_plain
+
+    _, x, valid = _corpus(31, 1200, 16, invalid_every=9, dup_rows=5)
+    q = np.random.default_rng(32).standard_normal((6, 16)).astype(np.float32)
+    tab, x_sq = t(x).to(dtype), t((x * x).sum(-1))
+    start = (t(np.full(6, -np.inf, np.float32)), t(np.full(6, -1, np.int32)))
+    got = by_passes(lambda after: l2_topk(
+        t(q), tab, t(valid), MAX_K, x_sq=x_sq, tile=500,
+        after=start if after is None else after), k, MAX_K)
+    want = l2_topk_plain(t(q), tab, t(valid), k, x_sq, 500)
+    assert_topk_parity(*got, *want, rtol=0, atol=0)
+    assert (n(got[1])[:, int(valid.sum()):] == -1).all()
+
+
+def test_floor_orders_by_value_then_row_with_pads_last():
+    """``after`` admits what comes after its pair in (value, row) order:
+    a greater value, or the same value at a later row; a pad's row (-1,
+    as uint32) comes after every row, so a pad floor admits nothing."""
+    from vector_db_tpu_torch.ops.cuda import floor_mask
+
+    vals = t(np.array([[1.0, 2.0, 2.0, 2.0, 3.0],
+                       [1.0, 2.0, 2.0, 2.0, 3.0]], np.float32))
+    rows = t(np.arange(5, dtype=np.int32))
+    after = (t(np.array([2.0, 3.0], np.float32)),
+             t(np.array([2, -1], np.int32)))
+    np.testing.assert_array_equal(
+        n(floor_mask(vals, rows, after)),
+        [[False, False, False, True, True], [False] * 5])

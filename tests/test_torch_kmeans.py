@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tests.torch_parity import n, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.ops.kmeans import _lloyd as jax_lloyd
 from vector_db_tpu.ops.kmeans import assign_tiled as jax_assign_tiled
 from vector_db_tpu.ops.kmeans import kmeans as jax_kmeans
@@ -20,6 +21,8 @@ from vector_db_tpu_torch.ops.kmeans import (
     kmeans,
     kmeans_multi,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _blobs(seed, k=6, per=60, dim=8, spread=0.3):

@@ -7,10 +7,13 @@ import pytest
 import torch
 
 from tests.torch_parity import ATOL, RTOL, assert_topk_parity, n, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.ops import distance as jd
 from vector_db_tpu.ops import topk as jt
 from vector_db_tpu_torch.ops import distance as pd
 from vector_db_tpu_torch.ops import topk as pt
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _data(seed, b, nrows, dim, scale=1.0):

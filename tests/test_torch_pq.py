@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from tests.torch_parity import assert_topk_parity, n, t
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from vector_db_tpu.index.pq import PQCodec as JaxCodec
 from vector_db_tpu.index.pq import (
     ProductQuantizationService as JaxService,
@@ -24,6 +25,8 @@ from vector_db_tpu_torch.index.pq import (
     ProductQuantizationService,
     _encode_residual_scan,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _correlated(seed, rows=600, dim=32):

@@ -15,8 +15,9 @@ compared:
 Also: the PQ, RP and pool-free beam routes (tests/services/
 test_index_types.py:125-160, :230-330, :397-435), each answer equal to the
 direct index call the JAX service makes and its recall near the JAX
-service's; each config the port lacks (autotune, sharded-hnsw) raises at
-construction naming its ROADMAP item; an index file saved by one package's
+service's; the autotune and sharded-hnsw configs construct and serve (their
+contracts in test_torch_autotune.py, test_torch_sharded.py); an index file
+saved by one package's
 service reopens in the other's; searches running beside inserts see whole
 batches only; the config's device spellings.
 """
@@ -41,6 +42,9 @@ from vector_db_tpu_torch.services.storage_service import StorageService
 from vector_db_tpu_torch.types import Node
 from tests.test_torch_ivf import _same_init
 from tests.torch_parity import recall
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RECALL_TOL = 0.01
 DIST_TOL = 1e-5
@@ -655,7 +659,7 @@ def test_scan_batch_threshold_routing(tmp_path, rng, monkeypatch):
     assert recall(got, truth) >= recall(want, truth) - RECALL_TOL
 
 
-# ---- what the port lacks, the device, both packages' files ----
+# ---- the configs ported last, the device, both packages' files ----
 
 @pytest.mark.parametrize("jax_test,index_type,extra,item", [
     ("test_sharded_hnsw_service", "sharded-hnsw", {}, "A7"),
@@ -664,12 +668,31 @@ def test_scan_batch_threshold_routing(tmp_path, rng, monkeypatch):
     ("tests/services/test_autotune.py", "hnsw",
      {"autotune": {"target_recall": 0.9, "min_size": 16}}, "A6"),
 ])
-def test_unported_configs_raise_at_construction(tmp_path, jax_test,
-                                                index_type, extra, item):
+def test_autotune_and_sharded_configs_construct_and_serve(
+        tmp_path, monkeypatch, rng, jax_test, index_type, extra, item):
+    """The configs that raised at construction until their ROADMAP item
+    (``item``) was ported now construct and serve: sharded-hnsw over eight
+    CPU shards (``make_mesh`` patched, as the JAX tests get eight virtual
+    devices), ``index.slices: 2`` as the 2-D mesh, and autotune routing
+    through a calibrated decision (``jax_test``'s first contract; the
+    whole of each in test_torch_sharded.py and test_torch_autotune.py)."""
+    from vector_db_tpu_torch.parallel import mesh as mesh_mod
+
+    real = mesh_mod.make_mesh
+    monkeypatch.setattr(mesh_mod, "make_mesh", lambda n_devices=None,
+                        devices=None: real(devices=["cpu"] * 8))
     cfg = make_config(tmp_path, index_type, **extra)
     storage = StorageService(str(tmp_path / "vdb"), dim=16, capacity=256)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
-        IndexingService(storage=storage.storage, config_path=cfg)
+    svc = IndexingService(storage=storage.storage, config_path=cfg)
+    nodes = make_nodes(rng, 40)
+    svc.insert_nodes(nodes)
+    res = svc.search(nodes[9].embedding, k=3, ef=30)
+    assert res[0][0].id == 9 and res[0][1] < 1e-3
+    if index_type == "sharded-hnsw":
+        assert svc.index.n_shards == 8
+        assert len(svc.index.mesh.axis_names) == 1 + ("slices" in extra)
+    else:
+        assert list(svc._autotune.stats()) == ["b8@0.9"]
 
 
 # ---- the PQ, RP and pool-free beam routes (test_index_types.py) ----

@@ -34,6 +34,9 @@ from vector_db_tpu_torch.storage.disk import DiskNodeStorage
 from vector_db_tpu_torch.types import Node
 from vector_db_tpu_torch.util import (euclidean_vector_distance,
                                       top_k_indices_sorted)
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 # ---- config, util (test_core.py) ----

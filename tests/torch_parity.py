@@ -2,11 +2,24 @@
 vector_db_tpu: the same numpy inputs go through both packages."""
 
 import numpy as np
+import pytest
 import torch
 
 # f32 values from two summation orders
 RTOL = 1e-5
 ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a test module's torch work on one CPU thread. Parallel test
+    workers, each with torch's default pool of a thread per core, outnumber
+    the cores, and the many small ops of graph searches and service calls
+    then wait on each other's threads, tens of times slower than alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def t(a, dtype=None):

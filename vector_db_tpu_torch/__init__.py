@@ -15,9 +15,13 @@ resolve_device, Node, InMemoryNodeStorage, embedding_like, sift_like.
 __version__ = "0.1.0"
 
 __all__ = ["FlatIndex", "IvfIndex", "HNSW", "PQCodec",
-           "ProductQuantizationService", "resolve_device", "Node",
-           "InMemoryNodeStorage", "embedding_like", "sift_like",
+           "ProductQuantizationService", "ShardedFlatIndex", "ShardedIVF",
+           "ShardedHNSW", "make_mesh", "make_mesh_2d", "resolve_device",
+           "Node", "InMemoryNodeStorage", "embedding_like", "sift_like",
            "__version__"]
+
+_PARALLEL = ("ShardedFlatIndex", "ShardedIVF", "ShardedHNSW", "make_mesh",
+             "make_mesh_2d")
 
 
 def __getattr__(name):
@@ -37,6 +41,10 @@ def __getattr__(name):
         from vector_db_tpu_torch.index import pq
 
         return getattr(pq, name)
+    if name in _PARALLEL:
+        from vector_db_tpu_torch import parallel
+
+        return getattr(parallel, name)
     if name == "resolve_device":
         from vector_db_tpu_torch.device import resolve_device
 

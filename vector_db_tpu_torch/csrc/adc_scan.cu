@@ -53,6 +53,12 @@
 // Ties: keys order by (value, row), so equal values keep row order within
 // a split; the wrapper's stable merge of the per-split lists keeps split
 // order, so the lower row wins across splits too.
+//
+// Longer lists, by passes: an optional per-query floor (value, row) drops
+// every row whose key is at or before the floor's. The wrapper runs
+// ceil(k / 2048) launches of k = 2048, each from the last one's final
+// pair; every launch has the same plan, so each row's value is the same
+// bits in each pass, and the passes join into the exact top-k.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,8 +95,8 @@ __host__ __device__ inline int list_len(int k) {
 // the q LUTs, the ring of `stages` tiles (a tile's codes, then its mask
 // bytes), the ring's mbarriers, q lists of kl keys, q candidate buffers of
 // cap keys (a buffer holds at most kl entries before a tile adds its rows,
-// so cap = 2 * max(kl, tile) never overflows), then the counts and the
-// thresholds.
+// so cap = 2 * max(kl, tile) never overflows), then the counts, the
+// thresholds and the floors' keys.
 struct Layout {
   int q, m, ksub, tile, stages, kl, cap;
   __host__ __device__ int tile_bytes() const { return tile * (m + 1); }
@@ -107,7 +113,10 @@ struct Layout {
   __host__ __device__ size_t misc() const {
     return buf() + (size_t)q * cap * 8;
   }
-  __host__ __device__ size_t total() const { return misc() + 2 * q * 4; }
+  __host__ __device__ size_t floors() const {
+    return (misc() + 2 * q * 4 + 7) & ~(size_t)7;
+  }
+  __host__ __device__ size_t total() const { return floors() + q * 8; }
 };
 
 // A (value, row) pair as one 64-bit key in (value, row) order: the value's
@@ -241,7 +250,9 @@ adc_scan_kernel(const float* __restrict__ lut,
                 const uint8_t* __restrict__ valid,
                 const float* __restrict__ row_bias,
                 const float* __restrict__ group_bias, int64_t group,
-                int64_t ngroups, int B, int64_t N, const Layout L, int k,
+                int64_t ngroups, const float* __restrict__ after_v,
+                const int* __restrict__ after_i, int B, int64_t N,
+                const Layout L, int k,
                 int qgroups, int64_t rows_per_split,
                 float* __restrict__ out_v, int* __restrict__ out_i,
                 int splits) {
@@ -261,6 +272,8 @@ adc_scan_kernel(const float* __restrict__ lut,
   uint64_t* buf = reinterpret_cast<uint64_t*>(smem + L.buf());
   int* cnt = reinterpret_cast<int*>(smem + L.misc());
   float* thr = reinterpret_cast<float*>(cnt + Q);
+  uint64_t* floor_key = reinterpret_cast<uint64_t*>(smem + L.floors());
+  const bool floored = after_v != nullptr;
 
   const int qg = blockIdx.x % qgroups;
   const int64_t split = blockIdx.x / qgroups;
@@ -314,6 +327,9 @@ adc_scan_kernel(const float* __restrict__ lut,
   if (tid < Q) {
     cnt[tid] = 0;
     thr[tid] = kBig;
+    floor_key[tid] = floored && q0 + tid < B
+                         ? make_key(after_v[q0 + tid], after_i[q0 + tid])
+                         : 0ull;
   }
   __syncthreads();
 
@@ -327,6 +343,9 @@ adc_scan_kernel(const float* __restrict__ lut,
   const unsigned same = kEvery << (lane % kLanesPerRow);
   const int qoff = (lane % kLanesPerRow) * G;
   const bool biased = row_bias != nullptr || group_bias != nullptr;
+  uint64_t fk[G];  // this lane's queries' floors
+#pragma unroll
+  for (int g = 0; g < G; ++g) fk[g] = floor_key[qoff + g];
   for (int u = 0; u < ntiles; ++u) {
     const int s = u % stages;
     const int64_t r0 = lo + (int64_t)u * tile;
@@ -363,7 +382,8 @@ adc_scan_kernel(const float* __restrict__ lut,
       // atomic per (warp, query) gives each lane its place
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const bool pass = ok && acc[g] <= t[g];
+        const bool pass = ok && acc[g] <= t[g] &&
+                          (!floored || make_key(acc[g], (int)row) > fk[g]);
         const unsigned mine = __ballot_sync(0xffffffffu, pass) & same;
         const int leader = __ffs(mine) - 1;
         int at = 0;
@@ -466,6 +486,8 @@ struct Bias {
   const float* row;
   const float* group_v;
   int64_t group, ngroups;
+  const float* after_v;  // the per-query floors (null: none)
+  const int* after_i;
 };
 
 template <int M, int Q>
@@ -485,8 +507,9 @@ int launch_scan(const float* lut, const uint8_t* codes, const uint8_t* valid,
     granted = smem;
   }
   adc_scan_kernel<M, Q><<<(unsigned)grid, kThreads, smem, stream>>>(
-      lut, codes, valid, bias.row, bias.group_v, bias.group, bias.ngroups, B,
-      N, p.L, k, qgroups, p.rows_per_split, out_v, out_i, p.splits);
+      lut, codes, valid, bias.row, bias.group_v, bias.group, bias.ngroups,
+      bias.after_v, bias.after_i, B, N, p.L, k, qgroups, p.rows_per_split,
+      out_v, out_i, p.splits);
   return (int)cudaGetLastError();
 }
 
@@ -534,20 +557,26 @@ extern "C" int vdb_adc_topk_plan(int B, long long N, int m, int ksub, int k,
 
 // lut: f32 [B, m, ksub]; codes: int32 [N, m] (is_u8 = 0) or uint8 [N, m]
 // (is_u8 = 1); valid: bool [N] as bytes; row_bias: f32 [N] or null;
-// group_bias: f32 [B, ceil(N / group)] or null (group >= 1); scratch: the bytes
+// group_bias: f32 [B, ceil(N / group)] or null (group >= 1); after_v /
+// after_i: f32 / int32 [B] per-query floors, or both null (a row whose
+// (value, row) key is at or before its query's floor's, a row as uint32,
+// takes no place in the list); scratch: the bytes
 // vdb_adc_topk_plan asked for; out_v / out_i: f32 / int32 [B, splits * k],
 // split s the lists of rows [s * N_s, (s + 1) * N_s) for N_s =
 // ceil(N / splits) rounded up to a tile. k <= 2048, ksub <= 256. Returns the
 // CUDA error code of the launches (0 on success).
 extern "C" int vdb_adc_topk(const float* lut, const void* codes, int is_u8,
                             const uint8_t* valid, const float* row_bias,
-                            const float* group_bias, long long group, int B,
+                            const float* group_bias, long long group,
+                            const float* after_v, const int* after_i, int B,
                             long long N, int m, int ksub, int k,
                             uint8_t* scratch, float* out_v, int* out_i,
                             void* stream) {
-  if (bad_args(B, N, m, ksub, k) || group < 1)
+  if (bad_args(B, N, m, ksub, k) || group < 1 ||
+      (after_v == nullptr) != (after_i == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Bias bias{row_bias, group_bias, group, (N + group - 1) / group};
+  const Bias bias{row_bias, group_bias, group, (N + group - 1) / group,
+                  after_v, after_i};
   if (B == 0 || N == 0) return 0;
   Plan p;
   int err = make_plan(B, N, m, ksub, k, codes, is_u8, valid, &p);

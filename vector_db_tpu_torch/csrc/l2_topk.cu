@@ -64,7 +64,13 @@
 //     result is the same bits in every run;
 //   * k: the query group is 128 for k <= 32 (lists in registers), 64 for
 //     k <= 64 and 32 up to 256 (lists of [group, k] values and rows in
-//     shared memory), or the smallest of those that holds B.
+//     shared memory), or the smallest of those that holds B;
+//   * longer lists, by passes: an optional per-query floor (value, row)
+//     drops every row at or before it in (value, row) order (a row as
+//     uint32, so a pad's -1 comes after every row). The wrapper runs
+//     ceil(k / 256) launches of k = 256, each from the last one's final
+//     pair; every launch has the same shape, so each distance is the same
+//     bits in each pass, and the passes join into the exact top-k.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -90,9 +96,10 @@ constexpr int kSmemLimit = 232448;        // H100: opt-in bytes per block
 
 // byte offsets in shared memory: the stages, then the score tile, the
 // lists (a group of 128 keeps its lists in registers), q_sq, the flags,
-// the k-th values and the mbarriers
+// the k-th values, the floors and the mbarriers
 struct Layout {
-  size_t q_bytes, stage_bytes, score, lv, li, qsq, cand, kth, bars, total;
+  size_t q_bytes, stage_bytes, score, lv, li, qsq, cand, kth, fv, fi, bars,
+      total;
 };
 
 __host__ __device__ inline Layout layout(bool f32, int nq, int k,
@@ -107,7 +114,9 @@ __host__ __device__ inline Layout layout(bool f32, int nq, int k,
   L.qsq = L.li + list;
   L.cand = L.qsq + (size_t)nq * 4;
   L.kth = L.cand + (size_t)nq * 4;
-  L.bars = (L.kth + (size_t)nq * 4 + 7) & ~(size_t)7;
+  L.fv = L.kth + (size_t)nq * 4;
+  L.fi = L.fv + (size_t)nq * 4;
+  L.bars = (L.fi + (size_t)nq * 4 + 7) & ~(size_t)7;
   L.total = L.bars + 2 * kMaxStages * 8 + 1024;  // + alignment slack
   return L;
 }
@@ -234,7 +243,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 l2_topk_kernel(const void* __restrict__ q_in, const float* __restrict__ q_lo,
                const void* __restrict__ emb_in, const float* __restrict__ qsq,
                const float* __restrict__ xsq,
-               const uint8_t* __restrict__ valid, int B, int64_t N, int d,
+               const uint8_t* __restrict__ valid,
+               const float* __restrict__ after_v,
+               const int* __restrict__ after_i, int B, int64_t N, int d,
                int k, int qgroups, int64_t rows_per_split, int stages,
                bool tma, const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_qlo,
@@ -253,6 +264,9 @@ l2_topk_kernel(const void* __restrict__ q_in, const float* __restrict__ q_lo,
   float* qsq_s = reinterpret_cast<float*>(smem + L.qsq);
   int* cand = reinterpret_cast<int*>(smem + L.cand);  // query has a candidate
   float* kth_s = reinterpret_cast<float*>(smem + L.kth);  // its k-th value
+  float* fv_s = reinterpret_cast<float*>(smem + L.fv);    // its floor
+  uint32_t* fi_s = reinterpret_cast<uint32_t*>(smem + L.fi);
+  const bool floored = after_v != nullptr;
   const uint32_t full0 = smem_u32(smem + L.bars);
   const uint32_t empty0 = full0 + 8 * kMaxStages;
 
@@ -273,6 +287,8 @@ l2_topk_kernel(const void* __restrict__ q_in, const float* __restrict__ q_lo,
     qsq_s[e] = q0 + e < B ? qsq[q0 + e] : 0.f;
     cand[e] = 0;
     kth_s[e] = kBig;
+    fv_s[e] = floored && q0 + e < B ? after_v[q0 + e] : 0.f;
+    fi_s[e] = floored && q0 + e < B ? (uint32_t)after_i[q0 + e] : 0u;
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -439,6 +455,11 @@ l2_topk_kernel(const void* __restrict__ q_in, const float* __restrict__ q_lo,
           float dist = qs - 2.f * acc[4 * c + 2 * i + j] + xr[i];
           if (kF32) dist = fmaxf(dist, 0.f);
           if (!ok[i]) dist = kBig;
+          if (floored) {  // at or before the floor: out of this pass
+            const float fv = fv_s[qq];
+            const uint32_t row = (uint32_t)(row0 + r_lo + 8 * i);
+            if (dist < fv || (dist == fv && row <= fi_s[qq])) dist = kBig;
+          }
           score[qq * kSRow + r_lo + 8 * i] = dist;
           pass |= dist < kth;
         }
@@ -515,9 +536,10 @@ l2_topk_kernel(const void* __restrict__ q_in, const float* __restrict__ q_lo,
 
 template <bool kF32, int NQ>
 int launch(const void* q, const float* q_lo, const void* emb,
-           const float* qsq, const float* xsq, const uint8_t* valid, int B,
-           int64_t N, int d, int k, int64_t rows_per_split, int splits,
-           float* out_v, int* out_i, cudaStream_t stream) {
+           const float* qsq, const float* xsq, const uint8_t* valid,
+           const float* after_v, const int* after_i, int B, int64_t N, int d,
+           int k, int64_t rows_per_split, int splits, float* out_v,
+           int* out_i, cudaStream_t stream) {
   const int qgroups = (B + NQ - 1) / NQ;
   const int64_t grid = (int64_t)qgroups * splits;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
@@ -542,7 +564,8 @@ int launch(const void* q, const float* q_lo, const void* emb,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   l2_topk_kernel<kF32, NQ><<<(unsigned)grid, kThreads, smem, stream>>>(
-      q, q_lo, emb, qsq, xsq, valid, B, N, d, k, qgroups, rows_per_split,
+      q, q_lo, emb, qsq, xsq, valid, after_v, after_i, B, N, d, k, qgroups,
+      rows_per_split,
       stages, tma, tm_q, tm_qlo, tm_x, out_v, out_i, (int64_t)splits * k);
   return (int)cudaGetLastError();
 }
@@ -550,18 +573,22 @@ int launch(const void* q, const float* q_lo, const void* emb,
 template <bool kF32>
 int launch_nq(int nq, const void* q, const float* q_lo, const void* emb,
               const float* qsq, const float* xsq, const uint8_t* valid,
-              int B, int64_t N, int d, int k, int64_t rows_per_split,
-              int splits, float* out_v, int* out_i, cudaStream_t s) {
+              const float* after_v, const int* after_i, int B, int64_t N,
+              int d, int k, int64_t rows_per_split, int splits, float* out_v,
+              int* out_i, cudaStream_t s) {
   switch (nq) {
     case 32:
-      return launch<kF32, 32>(q, q_lo, emb, qsq, xsq, valid, B, N, d, k,
-                             rows_per_split, splits, out_v, out_i, s);
+      return launch<kF32, 32>(q, q_lo, emb, qsq, xsq, valid, after_v,
+                             after_i, B, N, d, k, rows_per_split, splits,
+                             out_v, out_i, s);
     case 64:
-      return launch<kF32, 64>(q, q_lo, emb, qsq, xsq, valid, B, N, d, k,
-                             rows_per_split, splits, out_v, out_i, s);
+      return launch<kF32, 64>(q, q_lo, emb, qsq, xsq, valid, after_v,
+                             after_i, B, N, d, k, rows_per_split, splits,
+                             out_v, out_i, s);
     case 128:
-      return launch<kF32, 128>(q, q_lo, emb, qsq, xsq, valid, B, N, d, k,
-                             rows_per_split, splits, out_v, out_i, s);
+      return launch<kF32, 128>(q, q_lo, emb, qsq, xsq, valid, after_v,
+                             after_i, B, N, d, k, rows_per_split, splits,
+                             out_v, out_i, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -571,6 +598,9 @@ int launch_nq(int nq, const void* q, const float* q_lo, const void* emb,
 // bf16 table: q bf16 [B, d], q_lo unused. f32 table: q = q_hi and q_lo,
 // f32 [B, d], the query's rna-tf32 split. emb: [N, d] in the table dtype;
 // qsq: f32[B] from the f32 query; xsq: f32[N]; valid: bool[N] as bytes;
+// after_v / after_i: f32 / int32 [B], each query's floor, or both null:
+// a row at or before its query's (value, row) floor, the row compared as
+// uint32, takes no place in the lists;
 // out_v / out_i: f32 / int32 [B, splits * k], split s covering rows
 // [s * rows_per_split, ...), each list ascending by (value, row). nq: the
 // query group, 32, 64 or 128, with nq * k <= 4096 (8192 for nq = 32);
@@ -578,17 +608,21 @@ int launch_nq(int nq, const void* q, const float* q_lo, const void* emb,
 // of the launch (0 on success).
 extern "C" int vdb_l2_topk(const void* q, const float* q_lo, const void* emb,
                            const float* qsq, const float* xsq,
-                           const uint8_t* valid, int B, long long N, int d,
+                           const uint8_t* valid, const float* after_v,
+                           const int* after_i, int B, long long N, int d,
                            int k, int nq, long long rows_per_split,
                            int splits, int is_bf16, float* out_v, int* out_i,
                            void* stream) {
   if (k < 1 || k > kMaxK || d < 1 || B < 1 || rows_per_split % kTileRows)
     return (int)cudaErrorInvalidValue;
   if (nq * k > (nq == 32 ? 8192 : 4096)) return (int)cudaErrorInvalidValue;
+  if ((after_v == nullptr) != (after_i == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return is_bf16
-      ? launch_nq<false>(nq, q, nullptr, emb, qsq, xsq, valid, B, N, d, k,
-                         rows_per_split, splits, out_v, out_i, s)
-      : launch_nq<true>(nq, q, q_lo, emb, qsq, xsq, valid, B, N, d, k,
-                        rows_per_split, splits, out_v, out_i, s);
+      ? launch_nq<false>(nq, q, nullptr, emb, qsq, xsq, valid, after_v,
+                         after_i, B, N, d, k, rows_per_split, splits, out_v,
+                         out_i, s)
+      : launch_nq<true>(nq, q, q_lo, emb, qsq, xsq, valid, after_v, after_i,
+                        B, N, d, k, rows_per_split, splits, out_v, out_i, s);
 }

@@ -916,22 +916,16 @@ class HNSW:
         q_dev = torch.from_numpy(queries).to(self.device)
         qa = WB.aug_queries(q_dev, self._wb_proj, aug.shape[1])
         nbr0 = self.graph.neighbors[:, : 2 * self.M]
-        # cap the per-step [B, F*W, dpa] mirror gather at ~2M rows; the
-        # chunk count divides every segment's candidate width
         seg_fs = [f for f, _ in schedule] if schedule else [frontier]
-        rows = queries.shape[0] * max(seg_fs) * nbr0.shape[1]
-        score_chunks = 1
-        while (rows // score_chunks > 2_097_152
-               and all((f * nbr0.shape[1]) % (2 * score_chunks) == 0
-                       for f in seg_fs)):
-            score_chunks *= 2
         res_mask = (torch.from_numpy(self._store.filter_mask(filter_ids)).to(
             self.device) if filter_ids is not None else None)
         d_sq, slots = WB.wide_search(
             nbr0, aug, self._emb, self._has_emb, seeds, q_dev, qa,
             ef=ef, F=frontier, T=steps, k=k, rerank_k=rerank_k,
             dedup_window=dedup_window, seen_mask=seen_mask,
-            inline_tabs=inline_tabs, score_chunks=score_chunks,
+            inline_tabs=inline_tabs,
+            score_chunks=WB.score_chunks(queries.shape[0], seg_fs,
+                                         nbr0.shape[1]),
             merge_kernel=merge_kernel,
             schedule=(tuple(tuple(map(int, s)) for s in schedule)
                       if schedule else None),

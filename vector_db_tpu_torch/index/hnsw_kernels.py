@@ -47,7 +47,11 @@ from vector_db_tpu_torch.ops.distance import (
     squared_norms,
 )
 from vector_db_tpu_torch.ops.exact import exact_search
-from vector_db_tpu_torch.ops.topk import later_copies, masked_top_k_smallest
+from vector_db_tpu_torch.ops.topk import (
+    later_copies,
+    masked_top_k_smallest,
+    stable_top_k_smallest,
+)
 
 
 @dataclass
@@ -468,18 +472,6 @@ def delete_slot(graph: Graph, slot: int, M: int, l_max: int) -> Graph:
 
 
 # -- streaming insert --------------------------------------------------------
-def _smallest(d: torch.Tensor, ids: torch.Tensor, k: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`masked_top_k_smallest` by a stable sort: the k smallest of
-    the last axis ascending, ties in position order (``lax.top_k``'s),
-    (BIG, -1) where nothing is left. The commits select with it, so they
-    equal the JAX package's bit for bit even where distances tie."""
-    top_d, pos = torch.sort(d, dim=-1, stable=True)
-    top_d, pos = top_d[..., :k], pos[..., :k]
-    top_i = torch.gather(ids.expand(d.shape), -1, pos)
-    return top_d, torch.where(top_d >= BIG, -1, top_i)
-
-
 def _center_dists(emb: torch.Tensor, has_emb: torch.Tensor,
                   centers: torch.Tensor, cand: torch.Tensor,
                   rows: int = 1 << 16) -> torch.Tensor:
@@ -645,7 +637,7 @@ def commit_inserts(
             for level in range(lvl + 1):
                 start = level_col_start(level, M)
                 width = level_width(level, M)
-                md, ms = _smallest(
+                md, ms = stable_top_k_smallest(
                     torch.cat([cand_d[i, level],
                                torch.where(new_levels >= level, bd_i, BIG)]),
                     torch.cat([cand_s[i, level], new_slots]), efc)
@@ -663,7 +655,7 @@ def commit_inserts(
                 appended = rows.clone()
                 appended[rows_m, first_free] = slot
                 cand = torch.cat([rows, rows.new_full((M, 1), slot)], 1)
-                _, pruned = _smallest(
+                _, pruned = stable_top_k_smallest(
                     _center_dists(emb, has_emb, n_safe, cand), cand, width)
                 new_rows = torch.where(free.any(1)[:, None], appended, pruned)
                 keep = sel_ok.nonzero().flatten()
@@ -723,8 +715,9 @@ def commit_inserts_grouped(
         # graph has no candidates: its selection is empty by itself)
         b_lvl = torch.where(causal & (new_levels[None, :] >= level),
                             batch_d, BIG)
-        md, ms = _smallest(torch.cat([cand_d[:, level], b_lvl], 1),
-                           torch.cat([cand_s[:, level], batch_s], 1), efc)
+        md, ms = stable_top_k_smallest(
+            torch.cat([cand_d[:, level], b_lvl], 1),
+            torch.cat([cand_s[:, level], batch_s], 1), efc)
         sel_d, sel_s = md[:, :M], ms[:, :M]
         sel_ok = (sel_s >= 0) & lvl_active[:, None]
 
@@ -756,8 +749,8 @@ def commit_inserts_grouped(
                          device=dev)
         inc[seg[keep], rank[keep]] = src_s[keep]
         cand = torch.cat([nb[seg_dst, start:start + width], inc], 1)
-        _, merged = _smallest(_center_dists(emb, has_emb, seg_dst, cand),
-                              cand, width)
+        _, merged = stable_top_k_smallest(
+            _center_dists(emb, has_emb, seg_dst, cand), cand, width)
         nb[seg_dst, start:start + width] = merged
 
     # levels, and the entry: the first item of the highest level, if above

@@ -33,11 +33,11 @@ sum); the RP scan is the unpadded bf16 mirror on ``l2_topk`` (weakly
 clustered corpora) or the cell-block scan in plain torch. The TPU's
 ``approx_min_k`` becomes exact selection, ties to the lower position
 (:func:`ops.topk.smallest_stable`). bf16 operands are multiplied in f32
-(exact products), summed in f32. Each full scan's ``fetch`` is bounded by
-its kernel's lists on a CUDA device: 2048 for the PQ scan (``adc_topk``),
-256 for the flat RP route (``l2_topk``); a larger fetch raises there (the
-default ``max(4 * top_k, 100)`` passes them up to top_k 512 and 64), and
-runs the kernels' plain versions on the CPU.
+(exact products), summed in f32. Each full scan answers at every
+``fetch`` on every device: its kernel runs in one launch up to its lists
+(2048 for the PQ scan's ``adc_topk``, 256 for the flat RP route's
+``l2_topk``) and by passes past them, each from where the last one's list
+ended (``ops.cuda.by_passes``; ``ops.exact`` for the l2 scans).
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ from vector_db_tpu_torch.index.pq import (
     _encode_residual_scan,
     _encode_scan,
 )
+from vector_db_tpu_torch.ops.cuda import by_passes
 from vector_db_tpu_torch.ops.cuda.adc_probe import (
     adc_probe_plain,
     adc_probe_scores,
@@ -65,7 +66,6 @@ from vector_db_tpu_torch.ops.cuda.adc_scan import (
     adc_topk,
     adc_topk_plain,
 )
-from vector_db_tpu_torch.ops.cuda.l2_topk import MAX_K as L2_MAX_K
 from vector_db_tpu_torch.ops.distance import (
     BIG,
     BIG_THRESH,
@@ -374,8 +374,8 @@ def _ivf_pq_scan_cells(
     (query, cell) group term of the cell's L rows; one exact top-``fetch``
     (the JAX package keeps ``min(fetch, tile)`` a tile, which is the same
     set), mapped back through the slot table, then the exact rerank.
-    ``fetch`` above the kernel's lists (``ADC_MAX_K``, 2048) raises on a
-    CUDA device and takes the kernel's plain version on the CPU."""
+    ``fetch`` past the kernel's lists (2048) takes passes of it on a CUDA
+    tensor, the plain version on a CPU one (``adc_topk_long``'s rule)."""
     k_cells, max_l, m = cell_codes.shape
     fetch = max(top_k, min(fetch, k_cells * max_l))
     lut = _adc_lut(queries_rot, codebooks)                  # [B, m, ksub]
@@ -385,25 +385,21 @@ def _ivf_pq_scan_cells(
         corr = cd - (queries_rot * queries_rot).sum(-1)[:, None]   # [B, k]
     slots = cell_slots.reshape(-1)
     valid = (slots >= 0) & has_emb[slots.clamp_min(0).long()]
-    _check_fetch("the PQ full scan (adc_topk)", fetch, ADC_MAX_K, lut)
-    scan = adc_topk if fetch <= ADC_MAX_K else adc_topk_plain  # CPU only
-    fd, pos = scan(lut, cell_codes.reshape(-1, m), valid, fetch,
-                   row_bias=cell_s.reshape(-1) if residual else None,
-                   group_bias=corr, group=max_l)
+    codes = cell_codes.reshape(-1, m)
+    kw = dict(row_bias=cell_s.reshape(-1) if residual else None,
+              group_bias=corr, group=max_l)
+    if fetch <= ADC_MAX_K:
+        fd, pos = adc_topk(lut, codes, valid, fetch, **kw)
+    elif lut.device.type == "cpu":
+        fd, pos = adc_topk_plain(lut, codes, valid, fetch, **kw)
+    else:
+        fd, pos = by_passes(lambda after: adc_topk(
+            lut, codes, valid, ADC_MAX_K, after=after, **kw), fetch,
+            ADC_MAX_K)
     fi = torch.where(pos >= 0, slots[pos.clamp_min(0).long()], -1)
     if not rerank:
         return fd[:, :top_k], fi[:, :top_k]
     return _rerank(queries, emb, fi, top_k, dedup)
-
-
-def _check_fetch(route: str, fetch: int, limit: int,
-                 table: torch.Tensor) -> None:
-    """On a CUDA device a full scan runs its kernel, whose lists hold at
-    most ``limit`` candidates a query: a larger ``fetch`` raises there."""
-    if fetch > limit and table.device.type == "cuda":
-        raise ValueError(f"{route} keeps at most {limit} candidates a query "
-                         f"on a CUDA device, got fetch={fetch}: pass "
-                         f"fetch <= {limit}")
 
 
 def _rp_flat_search(
@@ -422,9 +418,8 @@ def _rp_flat_search(
     """Flat projected scan: the centred mirror through
     ``ops.exact.approx_search_tiled`` (the ``l2_topk`` kernel over a bf16
     table) with ``u`` as its norms, then the exact rerank; un-reranked, the
-    estimates plus the per-query constant. ``fetch`` above the kernel's
-    lists (256) raises on a CUDA device; on the CPU the plain scan runs."""
-    _check_fetch("the flat RP route (l2_topk)", fetch, L2_MAX_K, flat)
+    estimates plus the per-query constant. ``fetch`` past the kernel's
+    lists (256) takes passes of it, as every l2 scan does."""
     qp = _f32_dot(queries, proj)
     fd, fi = approx_search_tiled(qp - mu[None, :], flat, valid, fetch,
                                  tile=tile, x_sq=u)

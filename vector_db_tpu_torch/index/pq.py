@@ -28,8 +28,7 @@ import torch
 
 from vector_db_tpu_torch.device import require_f32_matmul, resolve_device
 from vector_db_tpu_torch.ops.cuda.adc_scan import (
-    MAX_K,
-    adc_topk,
+    adc_topk_long,
     adc_topk_plain,
 )
 from vector_db_tpu_torch.ops.kmeans import kmeans_multi, nearest
@@ -272,11 +271,10 @@ class PQCodec:
         used as they are).
 
         ``"matmul"`` (default) and ``"pallas"`` run the ``adc_topk`` kernel
-        on a CUDA device, ``"gather"`` its plain version; ``top_k`` above
-        the kernel's lists (2048) raises on a CUDA device and takes the
-        plain version on the CPU. Returns (approx squared L2
-        f32[B, top_k], row indices int32[B, top_k]) ascending, (BIG, -1)
-        padded past the valid rows."""
+        on a CUDA device, ``"gather"`` its plain version; ``top_k`` past
+        the kernel's lists (2048) takes passes of it. Returns (approx
+        squared L2 f32[B, top_k], row indices int32[B, top_k]) ascending,
+        (BIG, -1) padded past the valid rows."""
         if mode not in ("matmul", "pallas", "gather"):
             raise ValueError(f"Unknown ADC mode: {mode}")
         lut = self.adc_lut(queries)
@@ -289,12 +287,10 @@ class PQCodec:
                                device=self.device)
         valid = torch.as_tensor(valid).to(self.device)
         top_k = int(top_k)
-        # past the kernel's lists the CPU runs the plain scan; on a CUDA
-        # device adc_topk raises
-        if mode == "gather" or (top_k > MAX_K and lut.device.type == "cpu"):
+        if mode == "gather":
             d, i = adc_topk_plain(lut, codes, valid, top_k)
         else:
-            d, i = adc_topk(lut, codes, valid, top_k)
+            d, i = adc_topk_long(lut, codes, valid, top_k)
         return d.cpu().numpy(), i.cpu().numpy()
 
 

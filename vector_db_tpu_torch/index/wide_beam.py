@@ -252,6 +252,19 @@ def _shift(x: torch.Tensor, w: int, fill) -> torch.Tensor:
     return torch.cat([x[:, -w:], pad], 1)
 
 
+def score_chunks(b: int, frontiers, width: int,
+                 rows: int = 2_097_152) -> int:
+    """``wide_search``'s ``score_chunks`` for a batch of ``b`` queries:
+    the per-step [B, F*W, dpa] mirror gather capped at ~``rows`` rows, the
+    chunk count dividing every segment's candidate width F*W."""
+    need = b * max(frontiers) * width
+    chunks = 1
+    while (need // chunks > rows
+           and all((f * width) % (2 * chunks) == 0 for f in frontiers)):
+        chunks *= 2
+    return chunks
+
+
 def wide_search(
     neighbors0: torch.Tensor,   # int32[capacity, W] level-0 adjacency
     aug: torch.Tensor,          # bf16[capacity, dpa] scoring mirror

@@ -9,7 +9,9 @@ says what bounds it on the H100 and what its design does about that.
 
 Dispatch: a CPU tensor takes :func:`l2_topk_plain`; a CUDA tensor launches
 the kernel or raises. ``l2_topk.launches`` counts kernel launches,
-``l2_topk.launches_bf16`` those over a bf16 table.
+``l2_topk.launches_bf16`` those over a bf16 table. One launch lists up to
+256 per query; a longer list takes passes of the kernel, each from a
+per-query floor (``after``; ``ops.exact`` runs them).
 """
 
 from __future__ import annotations
@@ -19,7 +21,13 @@ from typing import Tuple
 
 import torch
 
-from vector_db_tpu_torch.ops.cuda import check_cuda_args, stream_of
+from vector_db_tpu_torch.ops.cuda import (
+    check_after,
+    check_cuda_args,
+    floor_mask,
+    merge_after,
+    stream_of,
+)
 from vector_db_tpu_torch.ops.distance import BIG, l2_sq_pairwise, squared_norms
 from vector_db_tpu_torch.ops.topk import masked_top_k_smallest, merge_top_k
 
@@ -58,9 +66,12 @@ def l2_topk_plain(
     k: int,
     x_sq: torch.Tensor,
     tile: int = 65536,
+    after: Tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain PyTorch version, ``tile`` corpus rows at a time,
-    so the [B, N] matrix never exists. Same formula per table dtype."""
+    so the [B, N] matrix never exists. Same formula per table dtype; any
+    k; with ``after``, only the rows past each query's floor, in (value,
+    row) order as the kernel lists them."""
     b, n = queries.shape[0], emb.shape[0]
     q = queries.float()
     bf16 = emb.dtype == torch.bfloat16
@@ -78,6 +89,11 @@ def l2_topk_plain(
             d = l2_sq_pairwise(q, x, x_sq[s:s + tile])
         ids = torch.arange(s, s + x.shape[0], dtype=torch.int32,
                            device=q.device)
+        if after is not None:
+            best_d, best_i = merge_after(
+                best_d, best_i, d, ids, k,
+                valid[None, s:s + tile] & floor_mask(d, ids, after))
+            continue
         td, ti = masked_top_k_smallest(d, ids, min(k, x.shape[0]),
                                        valid=valid[None, s:s + tile])
         best_d, best_i = merge_top_k(best_d, best_i, td, ti, k)
@@ -91,20 +107,24 @@ def l2_topk(
     k: int,
     x_sq: torch.Tensor | None = None,   # f32[N]; from emb when None
     tile: int = 65536,       # rows per pass of the plain version
+    after: Tuple[torch.Tensor, torch.Tensor] | None = None,  # f32/int32[B]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k smallest squared L2 of each query over the valid rows.
 
     Returns (f32[B, k], int32[B, k]) ascending, (BIG, -1) padded when fewer
     than k rows are valid. An f32 table gives the exact, clamped distance; a
     bf16 table scores the bf16-cast query against it with ``x_sq`` (pass
-    the f32 source's norms) and no clamp. ``k`` is limited to 256.
+    the f32 source's norms) and no clamp. ``k`` is limited to 256 (one
+    launch; ``ops.exact`` runs longer lists by passes). ``after`` (values,
+    rows) lists only the rows past each query's pair in (value, row)
+    order.
     """
     if not 1 <= k <= MAX_K:
         raise ValueError(f"l2_topk supports 1 <= k <= {MAX_K}, got k={k}")
     if x_sq is None:
         x_sq = squared_norms(emb.float())
     if queries.device.type == "cpu":
-        return l2_topk_plain(queries, emb, valid, k, x_sq, tile)
+        return l2_topk_plain(queries, emb, valid, k, x_sq, tile, after)
 
     b, d = queries.shape
     n = emb.shape[0]
@@ -112,6 +132,8 @@ def l2_topk(
                     emb=(emb, (torch.float32, torch.bfloat16), (n, d)),
                     x_sq=(x_sq, torch.float32, (n,)),
                     valid=(valid, torch.bool, (n,)))
+    if after is not None:
+        check_after("l2_topk", after, b, queries.device)
     from vector_db_tpu_torch import _build
 
     lib = _build.lib()
@@ -137,7 +159,10 @@ def l2_topk(
             err = lib.vdb_l2_topk(
                 q_hi.data_ptr(), 0 if bf16 else q_lo.data_ptr(),
                 emb.data_ptr(), q_sq.data_ptr(), x_sq.data_ptr(),
-                valid.data_ptr(), b, n, d, k, nq, rows_per_split, splits,
+                valid.data_ptr(),
+                None if after is None else after[0].data_ptr(),
+                None if after is None else after[1].data_ptr(),
+                b, n, d, k, nq, rows_per_split, splits,
                 int(bf16), part_d.data_ptr(), part_i.data_ptr(),
                 stream_of(emb))
         _build.check(err, "l2_topk")

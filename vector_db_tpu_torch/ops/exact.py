@@ -7,11 +7,12 @@ The corpus scans run through hand-written kernels on CUDA tensors:
 ``block_min_scan``. On CPU tensors each kernel wrapper runs its plain
 version.
 
-``l2_topk`` keeps its lists in shared memory and takes k <= 256. The three
-l2 scans answer for every k, as the JAX functions do: above 256 they branch,
-on k alone, to the tiled plain formulation ``l2_topk_plain`` (an f32
-product and a top-k merge per corpus tile, what the JAX package's
-``exact_search_tiled`` computes), on every device.
+``l2_topk`` keeps its lists in shared memory, 256 to a query. The three
+l2 scans answer for every k, as the JAX functions do, past 256, a
+CUDA tensor takes passes of the kernel, each from where the last one's
+list ended (``ops.cuda.by_passes``); a CPU tensor the tiled plain
+formulation ``l2_topk_plain`` (an f32 product and a top-k merge per corpus
+tile, what the JAX package's ``exact_search_tiled`` computes).
 
 ``block_select_search`` (the two-phase block-min scan of
 ``HNSW.search_batch_scan(mode="blocksel")``) is plain XLA in the JAX
@@ -33,6 +34,7 @@ import torch
 from vector_db_tpu_torch.device import require_f32_matmul
 from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
 from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
+from vector_db_tpu_torch.ops.cuda import by_passes
 from vector_db_tpu_torch.ops.cuda.l2_topk import MAX_K, l2_topk, l2_topk_plain
 from vector_db_tpu_torch.ops.distance import (
     BIG,
@@ -45,12 +47,20 @@ from vector_db_tpu_torch.ops.topk import smallest_stable
 
 
 def _l2_scan(queries, emb, valid, k, x_sq=None, tile=65536):
-    """``l2_topk`` for k <= 256, its tiled plain version above."""
+    """``l2_topk`` at any k: one launch up to 256. Past it a CUDA tensor
+    takes ceil(k / 256) launches of k = 256, each after the last one's
+    final (value, row) pair: the same shape every time, so a distance is
+    the same bits in every pass and the passes join into the exact top-k,
+    each a full read of the table. A CPU tensor takes the plain version."""
     if k <= MAX_K:
         return l2_topk(queries, emb, valid, k, x_sq=x_sq, tile=tile)
     if x_sq is None:
         x_sq = squared_norms(emb.float())
-    return l2_topk_plain(queries, emb, valid, k, x_sq, tile)
+    if queries.device.type == "cpu":
+        return l2_topk_plain(queries, emb, valid, k, x_sq, tile)
+    return by_passes(lambda after: l2_topk(queries, emb, valid, MAX_K,
+                                           x_sq=x_sq, after=after),
+                     k, MAX_K)
 
 
 def exact_search(
@@ -61,8 +71,8 @@ def exact_search(
     x_sq: torch.Tensor | None = None,   # f32[N]; from emb when None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by squared L2: (f32[B, k], int32[B, k]) ascending,
-    (BIG, -1) padded when fewer than k rows are valid. k <= 256 runs the
-    ``l2_topk`` kernel, a larger k the tiled plain scan. A caller that
+    (BIG, -1) padded when fewer than k rows are valid. The ``l2_topk``
+    kernel runs, by passes past k = 256. A caller that
     scans one table many times passes its norms as ``x_sq``."""
     return _l2_scan(queries, emb, valid, k, x_sq=x_sq)
 
@@ -75,8 +85,8 @@ def exact_search_tiled(
     tile: int = 65536,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`exact_search` with the plain version streaming ``tile`` rows
-    at a time (the kernel never holds more than its tile); the same branch
-    on k."""
+    at a time (the kernel never holds more than its tile); the same passes
+    past k = 256."""
     return _l2_scan(queries, emb, valid, k, tile=tile)
 
 
@@ -94,7 +104,7 @@ def approx_search_tiled(
     should come from the f32 source. Selection is exact (the JAX version's
     ``approx_min_k`` is TPU hardware). Returned distances are bf16-accurate;
     callers needing exact distances re-score with :func:`rescore_exact`.
-    k <= 256 runs the ``l2_topk`` kernel, a larger k its tiled plain scan.
+    The ``l2_topk`` kernel runs, by passes past k = 256.
     """
     return _l2_scan(queries, emb, valid, k, x_sq=x_sq, tile=tile)
 

@@ -31,17 +31,7 @@ import torch
 from vector_db_tpu_torch.device import require_f32_matmul
 from vector_db_tpu_torch.ops.distance import BIG, l2_sq_pairwise, squared_norms
 from vector_db_tpu_torch.ops.exact import knn_exact
-from vector_db_tpu_torch.ops.topk import later_copies
-
-
-def _stable_top_k_smallest(d: torch.Tensor, ids: torch.Tensor, k: int
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``masked_top_k_smallest`` with ``lax.top_k``'s tie rule (the lower
-    index first): a stable sort, cut to k; (BIG, -1) at or above BIG."""
-    top_d, pos = torch.sort(d, dim=-1, stable=True)
-    top_d, pos = top_d[..., :k], pos[..., :k]
-    top_i = torch.gather(ids.expand(d.shape), -1, pos)
-    return top_d, torch.where(top_d >= BIG, -1, top_i)
+from vector_db_tpu_torch.ops.topk import later_copies, stable_top_k_smallest
 
 
 def _dedup_by_id(d: torch.Tensor, i: torch.Tensor, k: int
@@ -53,7 +43,7 @@ def _dedup_by_id(d: torch.Tensor, i: torch.Tensor, k: int
     dup = later_copies(i) & (i >= 0)   # the first copy has the smallest d
     d = torch.where(dup, BIG, d)
     i = torch.where(dup, -1, i)
-    return _stable_top_k_smallest(d, i, k)
+    return stable_top_k_smallest(d, i, k)
 
 
 def _occlusion_prune_core(cand_d, cand_i, cand_emb, deg, alpha=1.0):
@@ -78,7 +68,7 @@ def _occlusion_prune_core(cand_d, cand_i, cand_emb, deg, alpha=1.0):
     offset = 1.0e30
     key = torch.where(sel_mask, cand_d - offset, cand_d)
     key = torch.where(cand_i >= 0, key, BIG)
-    sel_key, sel_i = _stable_top_k_smallest(key, cand_i, deg)
+    sel_key, sel_i = stable_top_k_smallest(key, cand_i, deg)
     sel_d = torch.where(sel_key < -offset / 2, sel_key + offset, sel_key)
     return sel_d, sel_i
 

@@ -32,6 +32,18 @@ def masked_top_k_smallest(
     return top_d, top_i
 
 
+def stable_top_k_smallest(d: torch.Tensor, ids: torch.Tensor, k: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`masked_top_k_smallest` by a stable sort: the k smallest of
+    the last axis ascending, ties in position order (``lax.top_k``'s, lower
+    position first), (BIG, -1) at or above BIG. Selections that must equal
+    the JAX package's where distances tie use it."""
+    top_d, pos = torch.sort(d, dim=-1, stable=True)
+    top_d, pos = top_d[..., :k], pos[..., :k]
+    top_i = torch.gather(ids.expand(d.shape), -1, pos)
+    return top_d, torch.where(top_d >= BIG, -1, top_i)
+
+
 def smallest_stable(d: torch.Tensor, k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, positions int64) of the k smallest entries of each row (the

@@ -1,4 +1,4 @@
-"""The port's services (copies of vector_db_tpu/services/, autotune aside).
+"""The port's services (copies of vector_db_tpu/services/).
 
 Exports are lazy, as the package's own: importing
 ``vector_db_tpu_torch.services.indexing_service`` loads neither ``httpx``

@@ -11,20 +11,20 @@ the reference's observable behavior, indexing_service.py:85-89,137-144).
 
 Additions over the reference, as in the JAX package: ``insert_nodes``
 batched ingest (a first batch of >= 4096 nodes into an empty HNSW goes to
-``bulk_build``), ``search_batch``, ``index.type`` (hnsw | flat | ivf), PQ
+``bulk_build``), ``search_batch``, ``index.type`` (hnsw | flat | ivf |
+sharded-hnsw: one HNSW shard per visible device of the config's device,
+``index.slices`` > 1 for the 2-D mesh), PQ
 (``index.pq``, or a search's ``pq_chunks``: IVF-PQ probing on ivf, PQ
 traversal on hnsw), residual projection (``index.rp``: RP probing on ivf,
 projected traversal on hnsw), the wide beam (``index.wide``, ``mode``:
 ``pool`` or the pool-free ``beam``), the batch scan route
-(``index.scan_batch_threshold``), the filtered engine (``scan`` | ``graph``)
-and the async threshold flush of batched inserts.
+(``index.scan_batch_threshold``), the filtered engine (``scan`` | ``graph``),
+calibrated mode routing (``index.autotune``, ``services/autotune.py``) and
+the async threshold flush of batched inserts.
 
 The device is the config's ``device``: ``cpu`` is the CPU; ``cuda`` and the
 JAX package's names for the accelerator (``auto``, ``tpu``) are the card,
-and raise (``config_device``) when there is none. A config that asks for a
-mode the port does not have yet (``index.autotune``, ``sharded-hnsw``)
-raises ``NotImplementedError`` here, at construction, naming the ROADMAP
-item that lifts it; a config never raises halfway through serving.
+and raise (``config_device``) when there is none.
 
 The port's tables are updated in place, where the JAX package's device
 arrays are immutable; every search therefore runs under the ingest lock,
@@ -53,12 +53,6 @@ from vector_db_tpu_torch.types import Node
 logger = logging.getLogger(__name__)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to vector_db_tpu_torch yet (ROADMAP queue "
-        f"{item})")
-
-
 class IndexingService:
     def __init__(
         self,
@@ -76,7 +70,6 @@ class IndexingService:
         # (QueryRequest.n_probe, api/models.py:20) but only ever builds HNSW
         # (indexing_service.py:56-64); here `index.type` actually selects.
         self.index_type = str(index_config.get("type", "hnsw")).lower()
-        self._check_ported(index_config)
         self.device = config_device(config.get("device", "cuda"))
 
         if index_file:
@@ -153,6 +146,26 @@ class IndexingService:
         self._filtered_engine = str(
             index_config.get("filtered_engine", "scan"))
         self._wide_active = False
+        # Calibrated mode routing (config: index.autotune: {target_recall,
+        # sample, k, ef_ladder, min_size}) — measures each mode's recall
+        # and cost against exact ground truth on the index's device and
+        # serves the cheapest one meeting the target (services/autotune.py).
+        # Takes precedence over scan_batch_threshold/wide for hnsw queries;
+        # per-request override via params.target_recall.
+        at_cfg = index_config.get("autotune") or {}
+        self._autotune = None
+        self._autotune_min_size = int(at_cfg.get("min_size", 4096))
+        if at_cfg.get("enabled", bool(at_cfg)):
+            from vector_db_tpu_torch.services.autotune import AutoTuner
+
+            self._autotune = AutoTuner(
+                target_recall=float(at_cfg.get("target_recall", 0.95)),
+                sample=int(at_cfg.get("sample", 256)),
+                k=int(at_cfg.get("k", 10)),
+                ef_ladder=tuple(
+                    int(e) for e in at_cfg.get(
+                        "ef_ladder", (64, 128, 256, 512, 1024))),
+            )
 
         rng = random.Random(42)
         if self.index_type == "hnsw":
@@ -191,6 +204,10 @@ class IndexingService:
             # npz rewrites are O(corpus) and redundant under it
             self.index.autosave = False
             self._ivf_pending: List[Node] = []
+        elif self.index_type == "sharded-hnsw":
+            self.index = self._sharded_index(config, M, ef_construction)
+            if self.index_file.exists():
+                self.index.load_index(self.index_file)
         else:
             raise ValueError(f"Unknown index type: {self.index_type}")
         self._index_loaded = self.index_file.exists()
@@ -213,13 +230,36 @@ class IndexingService:
         self._flush_busy = False
         self._flush_thread: Optional[threading.Thread] = None
 
-    def _check_ported(self, index_config: dict) -> None:
-        """Raise for a config that asks for a mode the port lacks."""
-        kind = self.index_type
-        if kind == "sharded-hnsw":
-            raise _not_ported("index.type: sharded-hnsw", "A7")
-        if index_config.get("autotune"):
-            raise _not_ported("index.autotune (AutoTuner)", "A6")
+    def _sharded_index(self, config: dict, M: int, ef_construction: int):
+        """A ShardedHNSW over every visible device of the config's device
+        (each CUDA device on the card, one shard on ``cpu``), with
+        ``vector_db.capacity`` split evenly; ``index.slices`` > 1 lays the
+        devices out as the 2-D ("slice", "shard") mesh."""
+        from vector_db_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+        from vector_db_tpu_torch.parallel.sharded import ShardedHNSW
+
+        dim = int(config.get("embedding", {}).get("dimension", 384))
+        cap_total = int(config.get("vector_db", {}).get(
+            "capacity", 1_000_000
+        ))
+        mesh = make_mesh(devices=None if self.device.type == "cuda"
+                         else [self.device])
+        n_dev = mesh.size
+        # index.slices > 1 builds the multi-slice ("slice", "shard") mesh:
+        # hierarchical merges keep the cross-slice traffic at B·k pairs
+        n_slices = int(config.get("index", {}).get("slices", 1) or 1)
+        if n_slices > 1:
+            if n_dev % n_slices:
+                raise ValueError(
+                    f"index.slices={n_slices} must divide the "
+                    f"{n_dev} visible devices"
+                )
+            mesh = make_mesh_2d(n_slices, n_dev // n_slices,
+                                devices=mesh.devices)
+        return ShardedHNSW(
+            M=M, ef_construction=ef_construction, dim=dim, mesh=mesh,
+            capacity_per_shard=max(256, cap_total // n_dev),
+        )
 
     def is_index_loaded(self) -> bool:
         return self._index_loaded
@@ -248,6 +288,13 @@ class IndexingService:
             # is many times faster than streaming inserts
             self._save_nodes(nodes)
             self.index.bulk_build(
+                [n.id for n in nodes],
+                np.stack([np.asarray(n.embedding, np.float32)
+                          for n in nodes]),
+            )
+        elif self.index_type == "sharded-hnsw":
+            self._save_nodes(nodes)
+            self.index.insert(
                 [n.id for n in nodes],
                 np.stack([np.asarray(n.embedding, np.float32)
                           for n in nodes]),
@@ -294,6 +341,10 @@ class IndexingService:
             self._ivf_pending = [
                 n for n in self._ivf_pending if n.id != node_id
             ]
+        elif self.index_type == "sharded-hnsw":
+            self.index.delete(node_id)
+            if hasattr(self.storage, "delete"):
+                self.storage.delete(node_id)
         else:
             self.index.delete_node(node_id)
         self._index_modified = True
@@ -359,6 +410,24 @@ class IndexingService:
                     self._rp_active = True
         return self._rp_active
 
+    def _autotune_ready(self, kwargs) -> bool:
+        """Calibrated routing applies to unfiltered hnsw/ivf queries once
+        the corpus is big enough for the mode ranking to be meaningful
+        (tiny corpora: every mode is exact-ish and microseconds apart).
+        For ivf the tuner picks n_probe (recall at a fixed n_probe swings
+        widely with the corpus), overriding the request's raw n_probe knob.
+        Filtered hnsw queries calibrate per selectivity bucket (the
+        scan/graph ranking flips with match fraction); filtered ivf keeps
+        the direct path (probe lists already fold the mask)."""
+        if self._autotune is None:
+            return False
+        if self.index_type == "ivf":
+            return (kwargs.get("filter_ids") is None
+                    and self.index.centroids is not None
+                    and self.index.size >= self._autotune_min_size)
+        return (self.index_type == "hnsw"
+                and self.index.size >= self._autotune_min_size)
+
     def _maybe_enable_wide(self) -> bool:
         """Activate wide-beam traversal for index.type: hnsw when
         index.wide is configured and the corpus crossed min_size."""
@@ -380,6 +449,14 @@ class IndexingService:
         with self._lock:
             if self.index_type == "ivf":
                 return self._ivf_search(query, k, **kwargs)
+            if self.index_type == "sharded-hnsw":
+                return self._resolve(*self._sharded_search(
+                    np.asarray(query, np.float32)[None, :], k, kwargs), k)
+            if self._autotune_ready(kwargs):
+                return self._resolve(*self._autotune.route(
+                    self, np.asarray(query, np.float32)[None, :], k,
+                    kwargs.get("target_recall"),
+                    filter_ids=kwargs.get("filter_ids")), k)
             if self._maybe_enable_wide():
                 ef = int(kwargs.get("ef", 50) or 50)
                 dists, ids = self._wide_dispatch(
@@ -402,7 +479,7 @@ class IndexingService:
         for nid, d in zip(ids[0], dists[0]):
             if nid < 0:
                 continue
-            node = self.index.storage.get(int(nid))
+            node = self.storage.get(int(nid))
             if node is not None:
                 out.append((node, float(d)))
         return out[:k]
@@ -418,6 +495,10 @@ class IndexingService:
             ]
             cands.sort(key=lambda t: t[0])
             return [(n, d) for d, n in cands[:k]]
+        if self._autotune_ready(kwargs):
+            return self._resolve(*self._autotune.route(
+                self, np.asarray(query, np.float32)[None, :], k,
+                kwargs.get("target_recall")), k)
         n_probe = int(kwargs.get("n_probe", 10) or 10)
         n_probe = max(1, min(n_probe, self.index.k))
         # RP / PQ probing when configured; filters fold into the validity
@@ -432,10 +513,20 @@ class IndexingService:
         )
         return self._resolve(dists, ids, k)
 
+    def _sharded_search(self, queries: np.ndarray, k: int, kwargs):
+        """ShardedHNSW's classic fan-out at the request's ef and filter."""
+        return self.index.search_batch(
+            queries, k=k, ef=int(kwargs.get("ef", 50) or 50),
+            filter_ids=kwargs.get("filter_ids"))
+
     def search_batch(self, queries: np.ndarray, k: int, **kwargs: Any):
         n_probe = kwargs.pop("n_probe", None)
         with self._lock:
             if self.index_type == "ivf":
+                if self._autotune_ready(kwargs):
+                    return self._autotune.route(
+                        self, np.asarray(queries, np.float32), k,
+                        kwargs.get("target_recall"))
                 n_probe = int(n_probe or 10)
                 n_probe = max(1, min(n_probe, self.index.k))
                 # filters implement tenancy/ACL — forward them (mirrors
@@ -454,6 +545,13 @@ class IndexingService:
                 return self.index.search_batch(
                     queries, k, filter_ids=kwargs.get("filter_ids")
                 )
+            if self.index_type == "sharded-hnsw":
+                return self._sharded_search(queries, k, kwargs)
+            if self._autotune_ready(kwargs):
+                return self._autotune.route(
+                    self, np.asarray(queries, np.float32), k,
+                    kwargs.get("target_recall"),
+                    filter_ids=kwargs.get("filter_ids"))
             if (self._scan_batch_threshold
                     and len(queries) >= self._scan_batch_threshold
                     and self.index.size >= self._wide_min_size):
@@ -501,14 +599,20 @@ class IndexingService:
         self.wait_for_flush()  # one checkpoint writer at a time
         with self._lock:
             if self._index_modified:
-                self.index.save_index()
+                self._do_save()
                 self._index_modified = False
 
     def force_save_index(self) -> None:
         self.wait_for_flush()
         with self._lock:
-            self.index.save_index()
+            self._do_save()
             self._index_modified = False
+
+    def _do_save(self) -> None:
+        if self.index_type == "sharded-hnsw":
+            self.index.save_index(self.index_file)
+        else:
+            self.index.save_index()
 
     # -- async threshold flush (batched ingest path) ----------------------
     def _schedule_flush(self) -> None:
