@@ -68,7 +68,16 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    the card's name and power limit. The launch counts are the services'
    calls alone. The storage's text fields are SVC_FIELD_CHARS wide (the
    one cut); a StorageService at the reference's widths is timed over
-   SVC_FULL_ROWS rows beside it.
+   SVC_FULL_ROWS rows beside it;
+7. at the same deployment: a. phase 6's HNSW service restarted with
+   index.autotune, its decision tables and routed calls; b. the sharded
+   indexes, 4 shards on the one card, beside the unsharded ones, and the
+   sharded-hnsw service;
+8. the port's headline benchmark, bench_torch.run, in this process: the
+   HNSW detail at 100,000 and 10,000 x 384 rows and the scan modes at
+   BENCH_HEADLINE_N x 768 (cut from 1M), per call and sustained at queue
+   depth 8; its JSON line is logged, its rows held to phase 3's floors,
+   and l2_topk (both tables), block_min and block_topm must launch.
 
 Phases 3-6 also profile search modes (torch.profiler over 3 calls):
 device busy time, idle share of the wall time, the largest device items.
@@ -220,6 +229,16 @@ SH_SLACK = 0.01         # a sharded recall may trail the unsharded one
 SH_IVF_CELLS = 1024
 SH_IVF_PROBE = 32
 SH_CHECK_B = 100        # queries of the per-shard IVF merge check
+# phase 8: the port's headline benchmark (bench_torch.run), bench.py's
+# sizes but for the headline corpus, cut from 1,000,000 rows to fit the
+# smoke's clock
+BENCH_HNSW_N = 100_000
+BENCH_HEADLINE_N = 262_144
+BENCH_REF_N = 10_000
+BENCH_QUERIES = 1000
+BENCH_TARGET = 0.95
+BENCH_FLOORS = {"bf16_scan": 0.99, "blocksel_3p": 0.999,
+                "blocksel_2p": 0.999}   # phase 3's floors of the same modes
 # peaks for the bound (H100 SXM datasheet, at 700 W)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
@@ -2801,17 +2820,22 @@ def _reset_counts():
     """Every kernel count to 0: a path's own launches follow."""
     from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
     from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
+    from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
+    from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
     from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
 
     l2_topk.launches = l2_topk.launches_bf16 = 0
     sorted_topk.launches = adc_probe_scores.launches = adc_topk.launches = 0
+    block_min_scan.launches = block_topm_scan.launches = 0
 
 
 def _counts():
     """Each kernel's launches since the last _reset_counts."""
     from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
     from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
+    from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
+    from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
     from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
 
@@ -2819,7 +2843,9 @@ def _counts():
             "l2_topk_bf16": l2_topk.launches_bf16,
             "sorted_topk": sorted_topk.launches,
             "adc_probe": adc_probe_scores.launches,
-            "adc_topk": adc_topk.launches}
+            "adc_topk": adc_topk.launches,
+            "block_min": block_min_scan.launches,
+            "block_topm": block_topm_scan.launches}
 
 
 def _launched(path, counts, names) -> None:
@@ -3430,6 +3456,64 @@ def phase_sharding(torch, kernels, card, base):
     return out
 
 
+def phase_bench(torch, kernels, card, dev):
+    """Phase 8: the port's headline benchmark, ``bench_torch.run``, in this
+    process: the HNSW detail at BENCH_HNSW_N and BENCH_REF_N x 384 rows,
+    the reference from the committed cache, the headline scans at
+    BENCH_HEADLINE_N x 768. Its JSON line is logged; the best mode is held
+    to the bench's target, each per-call row to phase 3's floor for its
+    mode, and each of the bench's four kernels must have launched."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import bench_torch
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(out):
+        details = bench_torch.run(
+            hnsw_n=BENCH_HNSW_N, headline_n=BENCH_HEADLINE_N,
+            ref_n=BENCH_REF_N, n_q=BENCH_QUERIES, device=dev,
+            cache_path=Path(__file__).resolve().parent / ".bench_ref.json",
+            details_path=Path(tmp) / "details.json")
+    counts = _counts()
+    lines = out.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench_torch printed {len(lines)} lines")
+    line = json.loads(lines[0])
+    log(f"phase 8 bench_torch result (headline cut to {BENCH_HEADLINE_N:,} "
+        f"of 1,000,000 rows) [{card}]: {lines[0]}")
+    if set(line) != {"metric", "value", "unit", "vs_baseline"}:
+        raise AssertionError(f"bench_torch line keys {sorted(line)}")
+    head = details["headline_1M_768"]
+    best = head[details["best_mode"]]
+    if best["recall"] < BENCH_TARGET or line["value"] <= 0:
+        raise AssertionError(f"best mode {details['best_mode']}: {best}")
+    for mode, floor in BENCH_FLOORS.items():
+        if head[mode]["recall"] < floor:
+            raise AssertionError(f"bench {mode}: recall {head[mode]} < "
+                                 f"{floor}")
+        if head[f"{mode}_sustained"]["qps"] <= 0:
+            raise AssertionError(f"bench {mode}: no sustained row")
+    _launched("bench", counts, ("l2_topk", "l2_topk_bf16", "block_min",
+                                "block_topm"))
+    for name in ("l2_topk", "l2_topk_bf16", "block_min", "block_topm"):
+        kernels[name]["launches"] += counts[name]
+    log(f"phase 8 rows [{card}]: " + json.dumps(
+        {m: {"qps": round(r["qps"], 1), "recall": r["recall"]}
+         for m, r in head.items() if isinstance(r, dict) and "qps" in r}))
+    log(f"phase 8 host syncs in one call of each mode: "
+        f"{head['host_syncs']}")
+    log(f"phase 8 HNSW detail: {details['ours_hnsw_detail']['ef']} / "
+        f"{details['ours_matched']['ef']} ef at {BENCH_HNSW_N:,} / "
+        f"{BENCH_REF_N:,} rows; vs_baseline {line['vs_baseline']}; launches "
+        f"of the bench {counts}")
+    log(f"phase 8 ok on {card} ({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -3513,6 +3597,9 @@ def main() -> int:
     phase_sharding(torch, kernels, card, base)
     del base
     log(f"phase 7b ok on {card} ({time.perf_counter() - t0:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_bench(torch, kernels, card, dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     if any(m == "vector_db_tpu" or m.startswith("vector_db_tpu.")

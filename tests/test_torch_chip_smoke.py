@@ -1,5 +1,6 @@
-"""A CPU rehearsal of chip_smoke.py's phases 6 and 7 (the port's services,
-autotune and the sharded indexes at the config.yaml deployment) and of the
+"""A CPU rehearsal of chip_smoke.py's phases 6, 7 and 8 (the port's
+services, autotune and the sharded indexes at the config.yaml deployment;
+the headline benchmark, bench_torch.run) and of the
 new parts of phases 4 and 5 (the IVF
 residual projection and full scans; the HNSW PQ / RP traversals, the
 PQ-scored wide beam, the inline tables and the pool-free beam) at a tiny
@@ -9,6 +10,8 @@ the profiler, the kernel timer) stubbed, the services' device taken to the
 CPU, and the kernel wrappers (which run their plain versions on the CPU
 and launch nothing) replaced by ones that count as a launch would.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -266,3 +269,44 @@ def test_phase_sharding_rehearsal(monkeypatch, capsys):
         assert line in text, line
     assert out["service"]["shards"] == 1
     assert kernels["sorted_topk"]["max_abs_err"] == 0.0
+
+
+def test_phase_bench_rehearsal(monkeypatch, capsys):
+    """Phase 8, the port's headline benchmark run in-process, at a tiny
+    size (floors lowered to what 8 queries over 2,048 rows give): its JSON
+    line logged, the rows held, the four kernels counted, and the smoke's
+    stdout left to the phase's own lines."""
+    if torch.cuda.is_available():
+        pytest.skip("a CPU rehearsal: on a card, chip_smoke.py runs it")
+    import bench_torch
+    from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
+    from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
+
+    for name, value in dict(
+            BENCH_HNSW_N=1200, BENCH_HEADLINE_N=2048, BENCH_REF_N=1000,
+            BENCH_QUERIES=8, BENCH_FLOORS={"bf16_scan": 0.9,
+                                           "blocksel_3p": 0.9,
+                                           "blocksel_2p": 0.8}).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(bench_torch, "card", lambda: "card, 700 W")
+    _counting(monkeypatch, port_exact, "l2_topk", l2_topk, bf16=True)
+    _counting(monkeypatch, port_exact, "block_min_scan", block_min_scan)
+    _counting(monkeypatch, port_exact, "block_topm_scan", block_topm_scan)
+    kernels = _kernels()
+    for name in ("block_min", "block_topm"):
+        kernels[name] = {"launches": 0, "max_abs_err": 0.0}
+
+    chip_smoke.phase_bench(torch, kernels, "card, 700 W",
+                           torch.device("cpu"))
+    out = capsys.readouterr().out
+    result = [line for line in out.splitlines()
+              if line.startswith("phase 8 bench_torch result")]
+    assert len(result) == 1
+    line = json.loads(result[0].split("]: ", 1)[1])
+    assert "card, 700 W" in line["metric"] and line["value"] > 0
+    for part in ("phase 8 rows", "phase 8 host syncs",
+                 "phase 8 HNSW detail", "phase 8 ok"):
+        assert part in out, part
+    assert all(line.startswith("phase 8 ") for line in out.splitlines())
+    for name in ("l2_topk", "l2_topk_bf16", "block_min", "block_topm"):
+        assert kernels[name]["launches"] > 0, name

@@ -1,9 +1,11 @@
 """vector_db_tpu_torch runs without jax and without any module of the JAX
 package vector_db_tpu (FlatIndex, IVF-PQ, HNSW end to end with inserts and
 persistence, the serving layer: StorageService, IndexingService with
-autotune and sharded-hnsw, and the app factory; the sharded indexes), and
-never falls back to the CPU when a GPU was asked for."""
+autotune and sharded-hnsw, and the app factory; the sharded indexes; the
+headline benchmark bench_torch.py), and never falls back to the CPU when a
+GPU was asked for."""
 
+import json
 import subprocess
 import sys
 import textwrap
@@ -222,6 +224,42 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "isolated"
+
+
+def test_bench_torch_never_imports_jax():
+    """bench_torch.py imported and run end to end at a tiny size on the CPU
+    (the card's name stubbed) loads no jax and no module of the JAX
+    package."""
+    script = textwrap.dedent("""
+        import json
+        import sys
+        import tempfile
+        from pathlib import Path
+
+        import torch
+
+        import bench_torch
+
+        torch.set_num_threads(1)
+        bench_torch.card = lambda: "isolation rehearsal"
+        with tempfile.TemporaryDirectory() as tmp:
+            details = bench_torch.run(
+                hnsw_n=600, headline_n=1024, ref_n=500, n_q=4, device="cpu",
+                cache_path=Path(tmp) / "none.json",
+                details_path=Path(tmp) / "details.json")
+        assert details["headline_1M_768"]["exact_f32"]["recall"] == 1.0
+        assert "jax" not in sys.modules, sorted(
+            m for m in sys.modules if m.startswith("jax"))
+        jax_pkg = sorted(m for m in sys.modules
+                         if m == "vector_db_tpu"
+                         or m.startswith("vector_db_tpu."))
+        assert not jax_pkg, jax_pkg
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    line = json.loads(out.stdout)
+    assert "isolation rehearsal" in line["metric"]
 
 
 def test_default_device_is_cuda_and_raises_without_one():
