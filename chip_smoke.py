@@ -78,6 +78,16 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    BENCH_HEADLINE_N x 768 (cut from 1M), per call and sustained at queue
    depth 8; its JSON line is logged, its rows held to phase 3's floors,
    and l2_topk (both tables), block_min and block_topm must launch.
+9. the 10M x 768 configuration of scripts/bench_10m.py and its sharded
+   form, scripts/dryrun_sharded_10m.py, by the port's
+   scripts/bench_10m_torch.py and scripts/dryrun_sharded_10m_torch.py in
+   this process at 10,000,000 rows (no cut): the corpus generated on the
+   card chunk by chunk with its exact truth on l2_topk, the bf16 ds = 120
+   mirror's stage 1 on block_min, the int8 rerank; the blocks_k ladder,
+   the routed point, the filtered search, and the 8 shards' f32 mirrors
+   and merge; each recall held to the JAX package's reading less 0.03,
+   block_min (ds 120 bf16 and the shards' f32 table) and l2_topk held
+   against their plain versions at the scripts' shapes and timed.
 
 Phases 3-6 also profile search modes (torch.profiler over 3 calls):
 device busy time, idle share of the wall time, the largest device items.
@@ -239,6 +249,19 @@ BENCH_QUERIES = 1000
 BENCH_TARGET = 0.95
 BENCH_FLOORS = {"bf16_scan": 0.99, "blocksel_3p": 0.999,
                 "blocksel_2p": 0.999}   # phase 3's floors of the same modes
+# phase 9: the 10M x 768 configuration on one card (scripts/bench_10m.py:
+# 47-57) and its sharded form (scripts/dryrun_sharded_10m.py:55-57), run by
+# the port's scripts at full size. Each recall is held to the JAX package's
+# TPU reading less TEN_M_SLACK (BENCH_10M.json, BENCH_SHARDED_10M.json; the
+# sharded one read on a CPU mesh)
+TEN_M_N = 10_000_000
+TEN_M_SLACK = 0.03
+TEN_M_JAX = {8: 0.7997, 16: 0.9805, 32: 0.9865, 64: 0.9886}
+TEN_M_ROUTED_FLOOR = 0.95
+TEN_M_FILTERED_JAX = 0.9809
+TEN_M_SHARDED_JAX = 0.99375
+TEN_M_CHECK_B = 8       # queries of the filtered block_min check
+TEN_M_SLICE = 100       # queries a slice of the full-width block_min check
 # peaks for the bound (H100 SXM datasheet, at 700 W)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
@@ -310,6 +333,20 @@ def bound(nbytes: float, ops: float, peak: float):
 def set_bound(kernel, nbytes, ops, peak, library_ms=None) -> None:
     kernel["bound_ms"], kernel["bound_by"] = bound(nbytes, ops, peak)
     kernel["library_ms"] = library_ms
+
+
+def terms(q, x_sq):
+    """l2_topk's per-query term size: ||q||^2 + max ||x||^2."""
+    return ((q * q).sum(-1) + x_sq.max()).cpu().numpy()
+
+
+def block_terms(q, tab, xsq):
+    """The block scans' term size per output row (query, block): max
+    |xsq_eff live| + 2 ||q|| max ||x||."""
+    live = xsq[xsq < LIVE]
+    top = live.abs().max() if live.numel() else xsq.new_zeros(())
+    s = top + 2 * q.norm(dim=1) * tab.float().norm(dim=1).max()
+    return np.repeat(s.cpu().numpy(), -(-tab.shape[0] // 128))
 
 
 def check_sorted(name, got, want) -> float:
@@ -435,14 +472,6 @@ def phase_kernels(torch, dev, kernels):
                         scale=scale)
         return e1, e2
 
-    def block_terms(q, tab, xsq):
-        """Per output row (query, block): max |xsq_eff live| + 2 ||q||
-        max ||x||."""
-        live = xsq[xsq < LIVE]
-        top = live.abs().max() if live.numel() else xsq.new_zeros(())
-        s = top + 2 * q.norm(dim=1) * tab.float().norm(dim=1).max()
-        return np.repeat(s.cpu().numpy(), -(-tab.shape[0] // 128))
-
     def block_ties(dtype, b):
         """Copies of one row are the best rows of their blocks: rows 3, 66
         and 127 (other threads and quads of one block) come out in row
@@ -470,9 +499,6 @@ def phase_kernels(torch, dev, kernels):
                 > ATOL + RTOL * top.abs()).any():
             raise AssertionError(f"block_topm {dtype} b={b}: copies in other "
                                  "blocks score other values")
-
-    def terms(q, x_sq):
-        return ((q * q).sum(-1) + x_sq.max()).cpu().numpy()
 
     def adc_probe_case(b, cells, width, m, ksub, offset=0):
         """P = cells * width slots, live for a random prefix of each cell
@@ -3514,6 +3540,226 @@ def phase_bench(torch, kernels, card, dev):
     log(f"phase 8 ok on {card} ({time.perf_counter() - t0:.1f} s)")
 
 
+def _scripts():
+    """scripts/bench_10m_torch.py and scripts/dryrun_sharded_10m_torch.py,
+    imported from the checkout."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import bench_10m_torch
+    import dryrun_sharded_10m_torch
+
+    return bench_10m_torch, dryrun_sharded_10m_torch
+
+
+def _run_script(module, n, dev, out_name):
+    """``module.run(n, dev, ...)`` with its JSON file in a temporary
+    directory and its one stdout line captured: (results, the line)."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(out):
+        res = module.run(n, dev, Path(tmp) / out_name)
+    lines = out.getvalue().strip().splitlines()
+    if len(lines) != 1 or json.loads(lines[0]) != json.loads(
+            json.dumps(res)):
+        raise AssertionError(f"{module.__name__} printed {len(lines)} lines "
+                             "or a line other than its results")
+    return res, lines[0]
+
+
+def ten_m_one_card(torch, card, dev, one, err):
+    """Phase 9, one card: ``bench_10m_torch.run`` at TEN_M_N rows, its
+    recalls held to their floors; then, on its own tables (kept from the
+    run), a profile of the routed search, block_min against its plain
+    version at ds = 120 (TEN_M_CHECK_B queries under the filter's norms,
+    and all B queries in slices) with its time, and l2_topk against its
+    plain version at one chunk under the filter's mask with its time.
+    Returns the path's launch counts and the kernels' timings."""
+    from vector_db_tpu_torch.ops.cuda.block_min import (
+        block_min_plain, block_min_scan)
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
+
+    kept = {}
+    real_build = one.build_tables
+
+    def build_and_keep(queries, proj, *args, **kwargs):
+        kept.update(tab=real_build(queries, proj, *args, **kwargs),
+                    queries=queries, proj=proj)
+        return kept["tab"]
+
+    _reset_counts()
+    one.build_tables = build_and_keep
+    try:
+        res, line = _run_script(one, TEN_M_N, dev, "BENCH_10M_TORCH.json")
+    finally:
+        one.build_tables = real_build
+    counts = _counts()
+    log(f"phase 9 bench_10m_torch result [{card}]: {line}")
+    for op in res["ops"]:
+        floor = TEN_M_JAX[op["blocks_k"]] - TEN_M_SLACK
+        if op["recall"] < floor:
+            raise AssertionError(f"10M blocks_k {op['blocks_k']}: recall "
+                                 f"{op['recall']} < {floor}")
+    routed, filt = res["routed"], res["filtered_10pct"]
+    if routed["holdout_recall"] < TEN_M_ROUTED_FLOOR:
+        raise AssertionError(f"10M routed: {routed}")
+    if filt["recall"] < TEN_M_FILTERED_JAX - TEN_M_SLACK:
+        raise AssertionError(f"10M filtered: {filt}")
+    _launched("10M one-card", counts, ("l2_topk", "block_min"))
+    ladder = [(o["blocks_k"], o["recall"], round(o["qps"], 1))
+              for o in res["ops"]]
+    log(f"phase 9 one card: (blocks_k, recall, QPS) {ladder}, routed "
+        f"{routed}, filtered {filt}, launches {counts}")
+
+    tab, q, proj = kept["tab"], kept["queries"], kept["proj"]
+    qm = q @ proj
+    c = routed["blocks_k"]
+    profile(torch, f"phase 9 routed search (blocks_k {c}, B {q.shape[0]}, "
+            f"{TEN_M_N:,} rows) [{card}]", lambda: one.search(tab, q, qm, c))
+
+    # block_min at the ds = 120 mirror: TEN_M_CHECK_B queries under the
+    # filter's norms, then every query in slices (the [B, N / 128] output)
+    xf = one.filtered_norms(tab)
+    qs = qm[:TEN_M_CHECK_B].contiguous()
+    e = check_topk("block_min ds 120, filtered",
+                   block_min_scan(qs, tab.mirror, xf), None,
+                   block_min_plain(qs, tab.mirror, xf), None, group=1,
+                   scale=block_terms(qs, tab.mirror, xf))
+    del xf
+    got = block_min_scan(qm, tab.mirror, tab.xsq_eff)
+    nb = got.shape[1]
+    scale = block_terms(qm, tab.mirror, tab.xsq_eff)
+    for s0 in range(0, q.shape[0], TEN_M_SLICE):
+        qv = qm[s0:s0 + TEN_M_SLICE].contiguous()
+        e = max(e, check_topk(
+            f"block_min ds 120, queries {s0}+", got[s0:s0 + TEN_M_SLICE],
+            None, block_min_plain(qv, tab.mirror, tab.xsq_eff), None,
+            group=1, scale=scale[s0 * nb:(s0 + qv.shape[0]) * nb]))
+    del got, scale
+    err["block_min"] = e
+    ms = cuda_ms(torch, lambda: block_min_scan(qm, tab.mirror, tab.xsq_eff))
+    plain_ms = cuda_ms(torch, lambda: block_min_plain(qm, tab.mirror,
+                                                      tab.xsq_eff))
+    n_pad, dp = tab.mirror.shape
+    b = q.shape[0]
+    bm = {"ms": ms, "plain_ms": plain_ms}
+    set_bound(bm, n_pad * (dp * 2 + 4) + b * dp * 4 + b * nb * 4,
+              2.0 * b * n_pad * dp, BF16_TC_FLOPS)
+    log(f"phase 9 block_min bf16 table N={n_pad} ds={dp} B={b} [{card}]: "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bm['bound_ms']:.3f} ms ({bm['bound_by']}), max abs err {e} "
+        f"(filtered at B={TEN_M_CHECK_B} and every query)")
+    del tab
+    kept.clear()
+
+    # l2_topk at one chunk of the truth's fold, under the filter's mask
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.nn.functional.normalize(
+        torch.randn(one.CHUNK, one.DIM, generator=gen, device=dev), dim=1)
+    x_sq = (x * x).sum(-1)
+    valid = torch.arange(one.CHUNK, device=dev) % one.FILTER_EVERY == 0
+    got = l2_topk(q, x, valid, one.K, x_sq=x_sq)
+    want = l2_topk_plain(q, x, valid, one.K + 1, x_sq)
+    err["l2_topk"] = check_topk("l2_topk phase 9 chunk, filtered", *got,
+                                *want, group=one.K, scale=terms(q, x_sq))
+    ms = cuda_ms(torch, lambda: l2_topk(q, x, valid, one.K, x_sq=x_sq))
+    plain_ms = cuda_ms(torch, lambda: l2_topk_plain(q, x, valid, one.K,
+                                                    x_sq))
+    lt = {"ms": ms, "plain_ms": plain_ms}
+    set_bound(lt, one.CHUNK * (one.DIM * 4 + 5) + b * one.DIM * 4
+              + b * one.K * 8, 3.0 * 2.0 * b * one.CHUNK * one.DIM,
+              TF32_TC_FLOPS)
+    log(f"phase 9 l2_topk f32 chunk N={one.CHUNK} d={one.DIM} B={b} "
+        f"k={one.K} [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {lt['bound_ms']:.3f} ms ({lt['bound_by']}), max abs err "
+        f"{err['l2_topk']}")
+    return counts, {"block_min": bm, "l2_topk": lt}
+
+
+def ten_m_sharded(torch, card, dev, sh, err):
+    """Phase 9, sharded: ``dryrun_sharded_10m_torch.run`` at TEN_M_N rows
+    over 8 shards, its recall held to its floor (the run itself raises
+    unless its merge equals a plain stable merge); then, on its shards (kept from the run), a profile of one sharded
+    search and block_min's f32 path against its plain version on shard 0.
+    Returns the path's launch counts."""
+    from vector_db_tpu_torch.ops.cuda.block_min import (
+        block_min_plain, block_min_scan)
+
+    kept = {}
+    real_shards = sh.build_shards
+
+    def shards_and_keep(*args):
+        kept.update(shards=real_shards(*args), args=args)
+        return kept["shards"]
+
+    _reset_counts()
+    sh.build_shards = shards_and_keep
+    try:
+        res, line = _run_script(sh, TEN_M_N, dev,
+                                "BENCH_SHARDED_10M_TORCH.json")
+    finally:
+        sh.build_shards = real_shards
+    counts = _counts()
+    log(f"phase 9 dryrun_sharded_10m_torch result [{card}]: {line}")
+    floor = TEN_M_SHARDED_JAX - TEN_M_SLACK
+    if res["recall_at_10"] < floor:
+        raise AssertionError(f"10M sharded: recall {res['recall_at_10']} "
+                             f"< {floor}")
+    _launched("10M sharded", counts, ("l2_topk", "block_min"))
+
+    shards = kept["shards"]
+    _, mesh, queries, proj, _ = kept["args"]
+    qm = queries @ proj
+    profile(torch, f"phase 9 sharded search ({len(shards)} shards, B "
+            f"{queries.shape[0]}) [{card}]",
+            lambda: sh.search_sharded(shards, mesh, queries, qm,
+                                      sh.BLOCKS_K))
+    s0 = shards[0]
+    e = check_topk("block_min f32 shard 0",
+                   block_min_scan(qm, s0.mirror, s0.xsq_eff), None,
+                   block_min_plain(qm, s0.mirror, s0.xsq_eff), None,
+                   group=1, scale=block_terms(qm, s0.mirror, s0.xsq_eff))
+    err["block_min"] = max(err["block_min"], e)
+    ms = cuda_ms(torch, lambda: block_min_scan(qm, s0.mirror, s0.xsq_eff))
+    n_pad, dp = s0.mirror.shape
+    b = queries.shape[0]
+    nbytes = n_pad * (dp * 4 + 4) + b * dp * 4 + b * (n_pad // 128) * 4
+    t_bound, by = bound(nbytes, 2.0 * b * n_pad * dp, F32_FLOPS)
+    log(f"phase 9 block_min f32 table (shard 0) N={n_pad} ds={dp} B={b} "
+        f"[{card}]: kernel {ms:.3f} ms, bound {t_bound:.3f} ms ({by}), "
+        f"max abs err {e}; recall {res['recall_at_10']}, launches {counts}")
+    kept.clear()
+    return counts
+
+
+def phase_10m(torch, kernels, card, dev):
+    """Phase 9: the 10M x 768 configuration (scripts/bench_10m_torch.py)
+    and its sharded form (scripts/dryrun_sharded_10m_torch.py), each run
+    in this process at TEN_M_N rows and its tables freed before the next.
+    The phase's kernels, block_min and l2_topk, get records of their own
+    (``block_min_10m``, ``l2_topk_10m``): both scripts' launches, the
+    kernels held against their plain versions, and their times at the
+    one-card shapes."""
+    t0 = time.perf_counter()
+    one, sh = _scripts()
+    err = {}
+    counts, timed = ten_m_one_card(torch, card, dev, one, err)
+    gc.collect()
+    torch.cuda.empty_cache()
+    more = ten_m_sharded(torch, card, dev, sh, err)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("block_min", "l2_topk"):
+        kernels[f"{name}_10m"].update(
+            launches=counts[name] + more[name], max_abs_err=err[name],
+            **timed[name])
+    log(f"phase 9 ok on {card} ({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -3551,6 +3797,9 @@ def main() -> int:
         "l2_topk": {"name": "l2_topk", "route": "cuda",
                     "source": "vector_db_tpu_torch/csrc/l2_topk.cu",
                     "replaces": "vector_db_tpu/ops/pallas/l2_topk.py:70"},
+        "l2_topk_10m": {"name": "l2_topk_10m", "route": "cuda",
+                        "source": "vector_db_tpu_torch/csrc/l2_topk.cu",
+                        "replaces": "vector_db_tpu/ops/pallas/l2_topk.py:70"},
         "l2_topk_bf16": {"name": "l2_topk_bf16", "route": "cuda",
                          "source": "vector_db_tpu_torch/csrc/l2_topk.cu",
                          "replaces":
@@ -3562,6 +3811,10 @@ def main() -> int:
         "block_min": {"name": "block_min", "route": "cuda",
                       "source": "vector_db_tpu_torch/csrc/block_select.cu",
                       "replaces": "vector_db_tpu/ops/pallas/block_min.py:45"},
+        "block_min_10m": {"name": "block_min_10m", "route": "cuda",
+                          "source": "vector_db_tpu_torch/csrc/block_select.cu",
+                          "replaces":
+                              "vector_db_tpu/ops/pallas/block_min.py:45"},
         "adc_probe": {"name": "adc_probe", "route": "cuda",
                       "source": "vector_db_tpu_torch/csrc/adc_probe.cu",
                       "replaces": "vector_db_tpu/ops/pallas/adc_probe.py:61"},
@@ -3600,6 +3853,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_bench(torch, kernels, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_10m(torch, kernels, card, dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     if any(m == "vector_db_tpu" or m.startswith("vector_db_tpu.")

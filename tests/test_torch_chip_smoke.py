@@ -310,3 +310,52 @@ def test_phase_bench_rehearsal(monkeypatch, capsys):
     assert all(line.startswith("phase 8 ") for line in out.splitlines())
     for name in ("l2_topk", "l2_topk_bf16", "block_min", "block_topm"):
         assert kernels[name]["launches"] > 0, name
+
+
+def test_phase_10m_rehearsal(monkeypatch, capsys):
+    """Phase 9, the 10M x 768 scripts run in-process, at a tiny size
+    (10,000 rows over 2,048-row chunks, 40 queries; 8 shards of 512-row
+    chunks at blocks_k 4; floors lowered to what that gives): each script's
+    line logged, both kernels counted and held, their records filled, and
+    the smoke's stdout left to the phase's own lines."""
+    if torch.cuda.is_available():
+        pytest.skip("a CPU rehearsal: on a card, chip_smoke.py runs it")
+    from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
+
+    one, sh = chip_smoke._scripts()
+    for module, values in (
+            (chip_smoke, dict(TEN_M_N=10_000, TEN_M_SLICE=16,
+                              TEN_M_JAX={8: 0.6, 16: 0.7, 32: 0.8, 64: 0.9},
+                              TEN_M_ROUTED_FLOOR=0.8,
+                              TEN_M_FILTERED_JAX=0.8,
+                              TEN_M_SHARDED_JAX=0.8)),
+            (one, dict(CHUNK=2048, B=40, LATENCY_REPS=2)),
+            (sh, dict(CHUNK=512, B=8, BLOCKS_K=4))):
+        for name, value in values.items():
+            monkeypatch.setattr(module, name, value)
+    _card_stubs(monkeypatch)
+    monkeypatch.setattr(one, "card", lambda: "card, 700 W")
+    _counting(monkeypatch, one, "l2_topk", l2_topk, bf16=True)
+    _counting(monkeypatch, one, "block_min_scan", block_min_scan)
+    kernels = {name: {"launches": 0} for name in ("block_min_10m",
+                                                  "l2_topk_10m")}
+
+    chip_smoke.phase_10m(torch, kernels, "card, 700 W", torch.device("cpu"))
+    out = capsys.readouterr().out
+    for script in ("bench_10m_torch", "dryrun_sharded_10m_torch"):
+        result = [line for line in out.splitlines()
+                  if line.startswith(f"phase 9 {script} result")]
+        assert len(result) == 1, script
+        line = json.loads(result[0].split("]: ", 1)[1])
+        assert line["N"] == 10_000 and line["card"] == "card, 700 W"
+    for part in ("phase 9 one card", "phase 9 block_min bf16 table",
+                 "phase 9 l2_topk f32 chunk", "phase 9 block_min f32 table",
+                 "phase 9 ok"):
+        assert part in out, part
+    assert all(line.startswith("phase 9 ") for line in out.splitlines())
+    for name in ("block_min_10m", "l2_topk_10m"):
+        rec = kernels[name]
+        assert rec["launches"] > 0 and rec["max_abs_err"] >= 0, rec
+        assert rec["ms"] == rec["plain_ms"] == 1.0
+        assert rec["bound_ms"] > 0 and rec["library_ms"] is None
+        assert rec["bound_by"] in ("bytes", "operations")

@@ -169,6 +169,7 @@ def _block_terms(q, tab, xsq):
 @pytest.mark.parametrize("nrows,ds,b,m", [
     (1000, 128, 1, 2),            # the main path's ds and m, B = 1
     (4096 + 70, 200, 70, 4),      # TMA zero-fills past ds = 200
+    (4096 + 70, 120, 1000, 1),    # the 10M mirror's 240-byte rows
     (300, 32, 5, 1),              # 64-byte rows: element loads
     (4096 + 70, 100, 1000, 16),   # 200-byte rows: element loads; 8 groups
     (1000, 128, 70, 128),         # m = 128: every row of a block

@@ -2,8 +2,9 @@
 package vector_db_tpu (FlatIndex, IVF-PQ, HNSW end to end with inserts and
 persistence, the serving layer: StorageService, IndexingService with
 autotune and sharded-hnsw, and the app factory; the sharded indexes; the
-headline benchmark bench_torch.py), and never falls back to the CPU when a
-GPU was asked for."""
+headline benchmark bench_torch.py; the 10M scripts
+scripts/bench_10m_torch.py and scripts/dryrun_sharded_10m_torch.py), and
+never falls back to the CPU when a GPU was asked for."""
 
 import json
 import subprocess
@@ -260,6 +261,44 @@ def test_bench_torch_never_imports_jax():
     assert out.returncode == 0, out.stderr
     line = json.loads(out.stdout)
     assert "isolation rehearsal" in line["metric"]
+
+
+def test_10m_scripts_never_import_jax():
+    """scripts/bench_10m_torch.py and scripts/dryrun_sharded_10m_torch.py
+    imported and run end to end at a tiny size on the CPU (the card's name
+    stubbed, chunks and query counts cut) load no jax and no module of the
+    JAX package."""
+    script = textwrap.dedent("""
+        import sys
+        import tempfile
+        from pathlib import Path
+
+        import torch
+
+        sys.path.insert(0, "scripts")
+        import bench_10m_torch as one
+        import dryrun_sharded_10m_torch as sh
+
+        torch.set_num_threads(1)
+        one.card = lambda: "isolation rehearsal"
+        one.CHUNK, one.B, one.LATENCY_REPS = 4096, 20, 2
+        sh.CHUNK, sh.B, sh.BLOCKS_K = 256, 4, 2
+        with tempfile.TemporaryDirectory() as tmp:
+            a = one.run(9000, "cpu", Path(tmp) / "a.json")
+            b = sh.run(9000, "cpu", Path(tmp) / "b.json")
+        assert a["card"] == b["card"] == "isolation rehearsal"
+        assert "jax" not in sys.modules, sorted(
+            m for m in sys.modules if m.startswith("jax"))
+        jax_pkg = sorted(m for m in sys.modules
+                         if m == "vector_db_tpu"
+                         or m.startswith("vector_db_tpu."))
+        assert not jax_pkg, jax_pkg
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = [json.loads(line) for line in out.stdout.splitlines()]
+    assert [line["N"] for line in lines] == [9000, 9000]
 
 
 def test_default_device_is_cuda_and_raises_without_one():
