@@ -87,7 +87,24 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    the routed point, the filtered search, and the 8 shards' f32 mirrors
    and merge; each recall held to the JAX package's reading less 0.03,
    block_min (ds 120 bf16 and the shards' f32 table) and l2_topk held
-   against their plain versions at the scripts' shapes and timed.
+   against their plain versions at the scripts' shapes and timed;
+10. the benchmark scripts of BASELINE configs 3 and 4, scripts/bench_sift.py,
+   bench_pq.py, bench_1m.py and bench_latency.py, by the port's
+   scripts/bench_{sift,pq,1m,latency}_torch.py in this process at
+   1,000,000 rows (no cut): SIFT-shaped 1M x 128 (phase 4's corpus) and
+   1M x 768 (phase 5's corpus; a fresh HNSW build), the latency rows on the
+   SIFT script's spill-2 index and the 1M script's HNSW. Each script's
+   JSON line is logged; every row of the committed BENCH_SIFT.json,
+   BENCH_PQ.json, BENCH_1M.json and BENCH_LATENCY.json must be in the
+   port's, its recall at or above the JAX reading less 0.03 (1.0 for the
+   lossless rows), and each row must launch its kernels; l2_topk at k 100
+   over the SIFT table, block_min over its bf16 copy and adc_topk at k 100
+   and 400 over the 1M x 16 codes are held against their plain versions
+   and timed.
+
+Phase 10's scripts time the classic RP / PQ and the beam rows at phase 5's
+settings, so phase 5 times each of those once; the sharded HNSW of phase 7b
+streams 2 of the service's 10 insert batches and bulk-builds the rest.
 
 Phases 3-6 also profile search modes (torch.profiler over 3 calls):
 device busy time, idle share of the wall time, the largest device items.
@@ -232,6 +249,7 @@ AT_BATCHES = (1000, 64, 1)  # routed batch sizes: buckets 1024, 64 and 8
 AT_SINGLE_Q = 200       # single queries of the B = 1 routed recall
 AT_SLACK = 0.02         # a routed recall may trail its decision's target
 SH_SHARDS = 4           # shards of the sharded indexes, on one card
+SH_BATCHES = 2          # streamed insert batches of the sharded HNSW
 SH_SEEDS = 1024         # wide seeds a shard (4,096 over the four)
 SH_CLASSIC_EFS = (50, 400)
 SH_BEAM = dict(frontier=224, steps=12, hist=2)
@@ -262,6 +280,17 @@ TEN_M_FILTERED_JAX = 0.9809
 TEN_M_SHARDED_JAX = 0.99375
 TEN_M_CHECK_B = 8       # queries of the filtered block_min check
 TEN_M_SLICE = 100       # queries a slice of the full-width block_min check
+# phase 10: the benchmark scripts of BASELINE configs 3 and 4, at full size
+P10_N = 1_000_000
+P10_SLACK = 0.03        # a recall may trail the JAX package's reading by this
+P10_JAX = ("BENCH_SIFT.json", "BENCH_PQ.json", "BENCH_1M.json",
+           "BENCH_LATENCY.json")
+P10_SCRIPTS = ("bench_sift_torch", "bench_pq_torch", "bench_1m_torch",
+               "bench_latency_torch")
+P10_IVF_K = 4096
+P10_B = 1000            # queries of the 1M x 768 corpus
+P10_SIFT_Q = 256        # the latency benchmark's SIFT queries
+_SHARED = {}            # phases 4 and 5 leave their corpora here for 10
 # peaks for the bound (H100 SXM datasheet, at 700 W)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
@@ -1071,6 +1100,7 @@ def phase_ivf_pq(torch, kernels):
 
     t0 = time.perf_counter()
     x, queries = sift_like(IVF_N, dim=IVF_DIM, seed=0, queries=B)
+    _SHARED["sift"] = (x, queries)      # scripts/bench_sift.py's corpus
     fresh, _ = sift_like(64, dim=IVF_DIM, seed=1)
     log(f"sift_like corpus {IVF_N} x {IVF_DIM} and {B} queries made "
         f"({time.perf_counter() - t0:.1f} s, host)")
@@ -1687,10 +1717,11 @@ def hnsw_modes(torch, kernels, idx, x, queries, truth, batches, deleted):
             for ef in HNSW_RP_EFS}
     rows[f"pq_{HNSW_PQ_EF}"] = (idx.search_batch_pq,
                                 dict(k=K, ef=HNSW_PQ_EF, expand=4))
-    # classic PQ / RP: 1 warm-up, 4 timed reps (host-bound, 0.2-0.4 s a
-    # call)
-    res, qps, launches = bench_rows(torch, rows, batches, queries,
-                                    (sorted_topk,), warm=1)
+    # classic PQ / RP: phase 10 times them at these settings
+    # (scripts/bench_1m_torch.py's hnsw_rp and hnsw_opq rows); one timed
+    # call each here
+    res, qps, launches = bench_rows(torch, rows, batches[:1], queries,
+                                    (sorted_topk,), warm=0)
     floors = {f"rp_{ef}": f for ef, f in HNSW_RP_EFS.items()}
     floors[f"pq_{HNSW_PQ_EF}"] = HNSW_PQ_FLOOR
     rows = {"wide_pq": (idx.search_batch_wide,
@@ -1719,15 +1750,19 @@ def hnsw_modes(torch, kernels, idx, x, queries, truth, batches, deleted):
     log(f"enable_wide(dims={INLINE_DIMS}, seeds={WIDE_SEEDS}, inline=True) "
         f"with its tables: {times['enable_wide_inline']:.1f} s; inline "
         f"tables {inline_bytes} bytes ({inline_bytes / 2**30:.2f} GiB)")
+    # the beam rows: phase 10 times them at these settings
+    # (scripts/bench_1m_torch.py's hnsw_beam rows); one timed call each
     rows = {f"beam_{f}": (idx.search_batch_beam,
                           dict(k=K, frontier=f, steps=BEAM_T,
                                hist=BEAM_HIST)) for f in BEAM_FLOORS}
-    rows["wide_inline"] = (idx.search_batch_wide,
-                           dict(wide, ef=WIDE_EF, frontier=WIDE_F,
-                                steps=WIDE_T))
+    r4, q4, l4 = bench_rows(torch, rows, batches[:1], queries,
+                            (sorted_topk,), warm=0)
+    rows = {"wide_inline": (idx.search_batch_wide,
+                            dict(wide, ef=WIDE_EF, frontier=WIDE_F,
+                                 steps=WIDE_T))}
     r3, q3, l3 = bench_rows(torch, rows, batches, queries, (sorted_topk,))
-    for got, more in ((res, (r2, r3)), (qps, (q2, q3)),
-                      (launches, (l2, l3))):
+    for got, more in ((res, (r2, r3, r4)), (qps, (q2, q3, q4)),
+                      (launches, (l2, l3, l4))):
         for m in more:
             got.update(m)
     floors.update(wide_pq=WIDE_PQ_FLOOR, wide_inline=WIDE_FLOOR,
@@ -1787,6 +1822,7 @@ def phase_hnsw(torch, kernels):
     x = embedding_like(HNSW_N + B, HNSW_DIM, seed=0, device="numpy")
     queries = np.ascontiguousarray(x[HNSW_N:])
     x = x[:HNSW_N]
+    _SHARED["emb768"] = (x, queries)    # scripts/bench_1m.py's corpus
     log(f"corpus {HNSW_N} x {HNSW_DIM} and {B} queries made "
         f"({time.perf_counter() - t0:.1f} s, host)")
     torch.cuda.reset_peak_memory_stats()
@@ -3409,7 +3445,9 @@ def phase_sharding(torch, kernels, card, base):
     gc.collect()
     torch.cuda.empty_cache()
 
-    n_bulk = SVC_N - SVC_BATCHES * SVC_BATCH - SVC_SINGLE
+    # the service streamed SVC_BATCHES batches; the sharded index streams
+    # SH_BATCHES of them and bulk-builds the rows of the rest
+    n_bulk = SVC_N - SH_BATCHES * SVC_BATCH - SVC_SINGLE
     h = ShardedHNSW(M=HNSW_M, ef_construction=HNSW_EFC, mesh=mesh,
                     dim=SVC_DIM, capacity_per_shard=cap)
     torch.cuda.synchronize()
@@ -3433,12 +3471,12 @@ def phase_sharding(torch, kernels, card, base):
     h.enable_wide(dims=120, seeds=SH_SEEDS)
     say(f"ShardedHNSW ({SH_SHARDS} shards of {cap}, M {HNSW_M}, "
         f"ef_construction {HNSW_EFC}): bulk_build of {n_bulk} rows "
-        f"{build_s:.2f} s; {SVC_BATCHES} inserts of {SVC_BATCH} "
-        f"{SVC_BATCHES * SVC_BATCH / sum(secs):.1f} docs/s (per batch "
+        f"{build_s:.2f} s; {SH_BATCHES} inserts of {SVC_BATCH} "
+        f"{SH_BATCHES * SVC_BATCH / sum(secs):.1f} docs/s (per batch "
         f"{[round(t, 2) for t in secs]} s), then {SVC_SINGLE} more; "
         f"delete_batch of {len(deleted)} {delete_s:.3f} s")
     out["hnsw"] = {"build_s": build_s, "delete_s": delete_s,
-                   "insert_docs_s": SVC_BATCHES * SVC_BATCH / sum(secs)}
+                   "insert_docs_s": SH_BATCHES * SVC_BATCH / sum(secs)}
     out["hnsw"]["modes"] = sharded_hnsw_modes(
         torch, say, kernels, h, ref, queries,
         (truth, fs.cpu().numpy(), ref_truth, ref_ftruth), allowed, deleted)
@@ -3540,21 +3578,20 @@ def phase_bench(torch, kernels, card, dev):
     log(f"phase 8 ok on {card} ({time.perf_counter() - t0:.1f} s)")
 
 
-def _scripts():
-    """scripts/bench_10m_torch.py and scripts/dryrun_sharded_10m_torch.py,
+def _scripts(names=("bench_10m_torch", "dryrun_sharded_10m_torch")):
+    """The port's scripts under scripts/ (by default the 10M ones),
     imported from the checkout."""
+    import importlib
     from pathlib import Path
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
-    import bench_10m_torch
-    import dryrun_sharded_10m_torch
-
-    return bench_10m_torch, dryrun_sharded_10m_torch
+    return [importlib.import_module(name) for name in names]
 
 
-def _run_script(module, n, dev, out_name):
-    """``module.run(n, dev, ...)`` with its JSON file in a temporary
-    directory and its one stdout line captured: (results, the line)."""
+def _run_script(module, n, dev, out_name, **kwargs):
+    """``module.run(n, dev, ..., **kwargs)`` with its JSON file in a
+    temporary directory and its one stdout line captured: (results, the
+    line)."""
     import io
     import tempfile
     from pathlib import Path
@@ -3562,7 +3599,7 @@ def _run_script(module, n, dev, out_name):
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp, \
             contextlib.redirect_stdout(out):
-        res = module.run(n, dev, Path(tmp) / out_name)
+        res = module.run(n, dev, Path(tmp) / out_name, **kwargs)
     lines = out.getvalue().strip().splitlines()
     if len(lines) != 1 or json.loads(lines[0]) != json.loads(
             json.dumps(res)):
@@ -3760,6 +3797,282 @@ def phase_10m(torch, kernels, card, dev):
     log(f"phase 9 ok on {card} ({time.perf_counter() - t0:.1f} s)")
 
 
+# the keys that name a row of a list (not its measurements)
+_ROW_METRICS = {"recall", "qps", "device_ms", "launches", "port_adc",
+                "ms_per_batch", "device_ms_est"}
+
+
+def _leaves(res, path=""):
+    """(row name, key, value) of every entry of a benchmark's JSON: a
+    dict's entries under its path, a list's dicts under the path and their
+    naming keys (``ivf_rp[fetch=128,n_probe=8]``)."""
+    if isinstance(res, dict):
+        for key, val in res.items():
+            yield path, key, val
+            if isinstance(val, (dict, list)) and not key.endswith(
+                    "launches"):
+                yield from _leaves(val, f"{path}.{key}".strip("."))
+    elif isinstance(res, list):
+        for row in res:
+            if isinstance(row, dict):
+                ident = ",".join(f"{k}={row[k]}" for k in sorted(row)
+                                 if k not in _ROW_METRICS and isinstance(
+                                     row[k], (str, int, float, bool)))
+                yield from _leaves(row, f"{path}[{ident}]")
+
+
+def recall_rows(res) -> dict:
+    """{row name: recall} of a benchmark's JSON (``recall``,
+    ``set_recall_at_100``, ``*_recall_at_100``)."""
+    return {(path if key == "recall" else f"{path}.{key}".strip(".")):
+            float(val) for path, key, val in _leaves(res)
+            if key == "recall" or key.endswith("recall_at_100")}
+
+
+def _row_launches(res) -> dict:
+    """{row name: its ``launches`` record}, named as recall_rows names."""
+    return {(path if key == "launches" else f"{path}.{key}".strip(".")): val
+            for path, key, val in _leaves(res) if key.endswith("launches")}
+
+
+def _p10_kernels(script: str, name: str) -> tuple:
+    """The kernels a phase 10 row must launch (by the row's name)."""
+    if script == "bench_pq_torch":
+        return ("adc_topk",)
+    if name == "build_launches":        # knn_exact in the HNSW build
+        return ("l2_topk",)
+    if name.endswith("exact_f32") or "engine=scan_exact" in name:
+        return ("l2_topk",)
+    if name.endswith("bf16_scan") or "mode=bf16_scan" in name or \
+            "engine=scan," in name:
+        return ("l2_topk_bf16",)
+    if name.endswith("blocksel_3p") or "mode=blocksel_3p" in name:
+        return ("block_min",)
+    if name.endswith("blocksel_2p"):
+        return ("block_topm",)
+    if name.startswith("pq_adc_scan"):
+        return ("adc_topk",)
+    if name.startswith("ivf_pq_residual"):
+        if f"n_probe={P10_IVF_K}" in name:
+            return ("adc_topk",)
+        return () if "adc=gather" in name else ("adc_probe",)
+    return ()
+
+
+def p10_hold(script: str, res: dict, jax: dict) -> dict:
+    """A script's rows against the JAX package's: every JAX row with a
+    recall is in the port's file, each at or above the JAX reading less
+    P10_SLACK (1.0 where the row is lossless by construction), and each
+    row launched the kernels it must, the wide rows no sorted_topk.
+    Returns {row: (port, JAX)}."""
+    got, want = recall_rows(res), recall_rows(jax)
+    missing = sorted(set(want) - set(got))
+    if missing:
+        raise AssertionError(f"{script}: JAX rows missing: {missing}")
+    lossless = ("exact_f32", "blocksel_exact")
+    pairs = {}
+    for name, w in want.items():
+        exact = name in lossless or name.endswith("mode=exact_f32")
+        floor = 1.0 if exact else w - P10_SLACK
+        if got[name] < floor:
+            raise AssertionError(f"{script} {name}: recall {got[name]} < "
+                                 f"{floor} (JAX {w})")
+        pairs[name] = (got[name], w)
+    for name, launched in _row_launches(res).items():
+        need = _p10_kernels(script, name)
+        for k in need:
+            if launched.get(k, 0) <= 0:
+                raise AssertionError(f"{script} {name}: {k} not launched "
+                                     f"({launched})")
+        if "wide" in name and launched.get("sorted_topk"):
+            raise AssertionError(f"{script} {name}: sorted_topk launched "
+                                 "with merge_kernel=False")
+    return pairs
+
+
+def _p10_jax(root) -> dict:
+    """The JAX package's readings, by port script: the committed
+    BENCH_*.json."""
+    return {m: json.loads((root / f).read_text())
+            for m, f in zip(P10_SCRIPTS, P10_JAX)}
+
+
+def _p10_corpus(name, make):
+    """Phase 4's or 5's corpus when it has this phase's shape, else
+    ``make()``."""
+    x, q = _SHARED.get(name) or (None, None)
+    if x is None or x.shape[0] != P10_N:
+        x, q = make()
+    return x, q
+
+
+def p10_kernel_checks(torch, kernels, card, ivf, codes_seen, queries):
+    """The new shapes of phase 10 against their plain versions, timed:
+    l2_topk f32 at k 100 over the SIFT table, block_min over its raw bf16
+    copy, adc_topk at k 100 and 400 over the 1M x 16 codes."""
+    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk, adc_topk_plain
+    from vector_db_tpu_torch.ops.cuda.block_min import (
+        block_min_plain, block_min_scan)
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
+    from vector_db_tpu_torch.ops.distance import PAD_ROW
+
+    emb, has = ivf._emb, ivf._has_emb
+    q = torch.from_numpy(queries).to(emb.device)
+    n, d = emb.shape
+    b, k = q.shape[0], 100
+    x_sq = (emb * emb).sum(-1)
+    e = check_topk("l2_topk f32 k 100 (SIFT table)",
+                   *l2_topk(q, emb, has, k, x_sq=x_sq),
+                   *l2_topk_plain(q, emb, has, k + 1, x_sq), group=k,
+                   scale=terms(q, x_sq))
+    rec = kernels["l2_topk_p10"]
+    rec.update(max_abs_err=e,
+               ms=cuda_ms(torch, lambda: l2_topk(q, emb, has, k, x_sq=x_sq)),
+               plain_ms=cuda_ms(torch, lambda: l2_topk_plain(q, emb, has, k,
+                                                             x_sq)))
+    set_bound(rec, n * (d * 4 + 5) + b * d * 4 + b * k * 8,
+              3.0 * 2.0 * b * n * d, TF32_TC_FLOPS)
+    log(f"phase 10 l2_topk f32 N={n} d={d} B={b} k={k} [{card}]: kernel "
+        f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), max abs err {e}")
+
+    tab = emb.to(torch.bfloat16)
+    xsq = torch.where(has, x_sq, PAD_ROW)
+    e = check_topk("block_min bf16 SIFT table", block_min_scan(q, tab, xsq),
+                   None, block_min_plain(q, tab, xsq), None, group=1,
+                   scale=block_terms(q, tab, xsq))
+    rec = kernels["block_min_p10"]
+    rec.update(max_abs_err=e,
+               ms=cuda_ms(torch, lambda: block_min_scan(q, tab, xsq)),
+               plain_ms=cuda_ms(torch, lambda: block_min_plain(q, tab, xsq)))
+    set_bound(rec, n * (d * 2 + 4) + b * d * 4 + b * (n // 128) * 4,
+              2.0 * b * n * d, BF16_TC_FLOPS)
+    log(f"phase 10 block_min bf16 SIFT table N={n} ds={d} B={b} [{card}]: "
+        f"kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), max abs err {e}")
+    del tab, xsq, x_sq
+
+    for kk in (100, 400):
+        lut, codes, valid = codes_seen[kk]
+        bq, m, ksub = lut.shape
+        nc = codes.shape[0]
+        e = check_topk(f"adc_topk k {kk} (bench_pq)",
+                       *adc_topk(lut, codes, valid, kk),
+                       *adc_topk_plain(lut, codes, valid, kk + 1), group=kk,
+                       scale=lut.amax(-1).sum(-1).cpu().numpy())
+        rec = kernels[f"adc_topk_p10_k{kk}"]
+        rec.update(max_abs_err=e,
+                   ms=cuda_ms(torch, lambda: adc_topk(lut, codes, valid,
+                                                      kk)),
+                   plain_ms=cuda_ms(torch, lambda: adc_topk_plain(
+                       lut, codes, valid, kk), reps=1))
+        set_bound(rec, nc * (m * codes.element_size() + 1)
+                  + bq * m * ksub * 4 + bq * kk * 8, float(bq) * nc * m,
+                  F32_FLOPS)
+        log(f"phase 10 adc_topk {codes.dtype} codes N={nc} m={m} "
+            f"ksub={ksub} B={bq} k={kk} [{card}]: kernel {rec['ms']:.3f} "
+            f"ms, plain {rec['plain_ms']:.3f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max abs err {e}")
+
+
+def phase_bench_scripts(torch, kernels, card, dev):
+    """Phase 10: the benchmark scripts of BASELINE configs 3 and 4
+    (scripts/bench_{sift,pq,1m,latency}_torch.py) at P10_N rows in this
+    process, on phase 4's SIFT corpus and phase 5's 1M x 768 corpus; the
+    latency benchmark on the SIFT script's spill-2 index and the 1M
+    script's HNSW. Each script's line is logged, its rows held to the JAX
+    package's readings (the committed BENCH_*.json) less P10_SLACK and to
+    the kernels they must launch; the new shapes are held against their
+    plain versions and timed."""
+    from pathlib import Path
+
+    from vector_db_tpu_torch.datasets import embedding_like, sift_like
+
+    t0 = time.perf_counter()
+    sift_s, pq_s, m1_s, lat_s = _scripts(P10_SCRIPTS)
+    jax = _p10_jax(Path(__file__).resolve().parent)
+    x, q = _p10_corpus("sift", lambda: sift_like(P10_N, dim=128, seed=0,
+                                                 queries=1000))
+    counts, seconds, held = {}, {}, {}
+
+    def one(module, out_name, **kw):
+        t1 = time.perf_counter()
+        _reset_counts()
+        res, line = _run_script(module, P10_N, dev, out_name, **kw)
+        name = module.__name__
+        counts[name] = _counts()
+        seconds[name] = time.perf_counter() - t1
+        log(f"phase 10 {name} result [{card}]: {line}")
+        held[name] = p10_hold(name, res, jax[name])
+        log(f"phase 10 {name}: {len(held[name])} rows held to the JAX "
+            f"readings less {P10_SLACK} (port, JAX): {held[name]}; "
+            f"launches {counts[name]} ({seconds[name]:.1f} s)")
+        return res
+
+    keep_sift = {}
+    sift_res = one(sift_s, "BENCH_SIFT_TORCH.json", source={"x": x, "q": q},
+                   k_cells=P10_IVF_K, keep=keep_sift)
+    seen = {}
+    real = pq_s.adc_topk_long
+
+    def first_per_k(lut, codes, valid, k, **kw):
+        seen.setdefault(k, (lut, codes, valid))
+        return real(lut, codes, valid, k, **kw)
+
+    pq_s.adc_topk_long = first_per_k
+    try:
+        pq_res = one(pq_s, "BENCH_PQ_TORCH.json", source={"x": x, "q": q})
+    finally:
+        pq_s.adc_topk_long = real
+    p10_kernel_checks(torch, kernels, card, keep_sift["ivf"], seen, q)
+    seen.clear()
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def emb768():
+        data = embedding_like(P10_N + 1000, 768, 0)
+        return data[:P10_N], data[P10_N:]
+
+    xg, qg = _p10_corpus("emb768", emb768)
+    keep_1m = {}
+    m1_res = one(m1_s, "BENCH_1M_TORCH.json",
+                 source={"x": xg, "q": qg[:P10_B]}, b=P10_B,
+                 k_cells=P10_IVF_K, keep=keep_1m)
+    del xg
+    gc.collect()
+    torch.cuda.empty_cache()
+    one(lat_s, "BENCH_LATENCY_TORCH.json",
+        sift={"ivf": keep_sift["ivf"], "q": q[:P10_SIFT_Q]}, graph=keep_1m)
+    keep_sift.clear()
+    keep_1m.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    total = {k: sum(c[k] for c in counts.values()) for k in _counts()}
+    k100 = sum(pq_res[c]["adc_launches"].get("adc_topk", 0)
+               for c in ("pq", "opq"))
+    k400 = sum(pq_res[c]["rerank_launches"].get("adc_topk", 0)
+               for c in ("pq", "opq"))
+    kernels["l2_topk_p10"]["launches"] = total["l2_topk"]
+    kernels["block_min_p10"]["launches"] = total["block_min"]
+    scan_k100 = sift_res["pq_adc_scan"]["launches"].get("adc_topk", 0)
+    kernels["adc_topk_p10_k100"]["launches"] = k100 + scan_k100
+    kernels["adc_topk_p10_k400"]["launches"] = k400
+    # the IVF-PQ full scan's (k = fetch, row and group terms)
+    kernels["adc_topk"]["launches"] += total["adc_topk"] - k100 - k400 \
+        - scan_k100
+    for name in ("l2_topk_bf16", "block_topm", "adc_probe"):
+        kernels[name]["launches"] += total[name]
+    _launched("phase 10", total, ("l2_topk", "l2_topk_bf16", "block_min",
+                                  "block_topm", "adc_probe", "adc_topk"))
+    if total["sorted_topk"]:
+        raise AssertionError("phase 10: sorted_topk launched")
+    log(f"phase 10 build_s {m1_res['build_s']:.1f} s (1M x 768, fresh); "
+        f"seconds per script {seconds}; launches {total}")
+    log(f"phase 10 ok on {card} ({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -3821,6 +4134,23 @@ def main() -> int:
         "adc_topk": {"name": "adc_topk", "route": "cuda",
                      "source": "vector_db_tpu_torch/csrc/adc_scan.cu",
                      "replaces": "vector_db_tpu/ops/pallas/adc_scan.py:80"},
+        "l2_topk_p10": {"name": "l2_topk_p10", "route": "cuda",
+                        "source": "vector_db_tpu_torch/csrc/l2_topk.cu",
+                        "replaces": "vector_db_tpu/ops/pallas/l2_topk.py:70"},
+        "block_min_p10": {"name": "block_min_p10", "route": "cuda",
+                          "source": "vector_db_tpu_torch/csrc/block_select.cu",
+                          "replaces":
+                              "vector_db_tpu/ops/pallas/block_min.py:45"},
+        "adc_topk_p10_k100": {"name": "adc_topk_p10_k100", "route": "cuda",
+                              "source":
+                                  "vector_db_tpu_torch/csrc/adc_scan.cu",
+                              "replaces":
+                                  "vector_db_tpu/ops/pallas/adc_scan.py:80"},
+        "adc_topk_p10_k400": {"name": "adc_topk_p10_k400", "route": "cuda",
+                              "source":
+                                  "vector_db_tpu_torch/csrc/adc_scan.cu",
+                              "replaces":
+                                  "vector_db_tpu/ops/pallas/adc_scan.py:80"},
         "sorted_topk": {"name": "sorted_topk", "route": "cuda",
                         "source": "vector_db_tpu_torch/csrc/sorted_topk.cu",
                         "replaces":
@@ -3856,6 +4186,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_10m(torch, kernels, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_bench_scripts(torch, kernels, card, dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     if any(m == "vector_db_tpu" or m.startswith("vector_db_tpu.")

@@ -12,6 +12,7 @@ and launch nothing) replaced by ones that count as a launch would.
 """
 
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -359,3 +360,99 @@ def test_phase_10m_rehearsal(monkeypatch, capsys):
         assert rec["ms"] == rec["plain_ms"] == 1.0
         assert rec["bound_ms"] > 0 and rec["library_ms"] is None
         assert rec["bound_by"] in ("bytes", "operations")
+
+
+def test_phase_bench_scripts_rehearsal(monkeypatch, capsys):
+    """Phase 10, the benchmark scripts of BASELINE configs 3 and 4 run
+    in-process, at a tiny size (3,000 rows, 32 cells, 16 queries; the codecs trained for 2
+    iterations, the graph searches capped at ef 64, frontier 16 and 4
+    steps): each script's line logged, its rows
+    matched by name to the committed JAX files (n_probe 4096 read as the
+    32 cells, the slack at 1.0: only the lossless rows keep a floor of 1.0),
+    the kernels each row must launch counted, the new shapes' records
+    filled, and the smoke's stdout left to the phase's own lines."""
+    if torch.cuda.is_available():
+        pytest.skip("a CPU rehearsal: on a card, chip_smoke.py runs it")
+    import vector_db_tpu_torch.index.pq as port_pq
+    from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
+    from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
+
+    sift_s, pq_s, m1_s, lat_s = chip_smoke._scripts(chip_smoke.P10_SCRIPTS)
+    cells = 32
+    for name, value in dict(P10_N=3000, P10_IVF_K=cells, P10_B=16,
+                            P10_SLACK=1.0).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    for module in (sift_s, pq_s, m1_s, lat_s):
+        monkeypatch.setattr(module, "card", lambda: "card, 700 W")
+    monkeypatch.setattr(lat_s, "REPS", 1)
+    for module in (sift_s, pq_s):
+        monkeypatch.setattr(module, "B", 16)
+    # the graph searches shallow (the phase's logic is rehearsed, not the
+    # searches'): ef 64, frontier 16, 4 steps at most
+    from vector_db_tpu_torch.index.hnsw import HNSW
+    for name in ("search_batch", "search_batch_wide", "search_batch_beam",
+                 "search_batch_rp", "search_batch_pq"):
+        real = getattr(HNSW, name)
+
+        def shallow(self, q, k, *a, _real=real, **kw):
+            for key, cap in (("ef", 64), ("frontier", 16), ("steps", 4),
+                             ("rerank_k", 64)):
+                if key in kw:
+                    kw[key] = min(kw[key], cap)
+            return _real(self, q, k, *a, **kw)
+        monkeypatch.setattr(HNSW, name, shallow)
+    common = sys.modules["bench_common_torch"]
+    monkeypatch.setattr(common, "WARM", 0)
+    monkeypatch.setattr(common, "REPS", 1)
+    real_train = port_pq.PQCodec.train
+    monkeypatch.setattr(
+        port_pq.PQCodec, "train",
+        lambda self, x, seed=0, iters=100, restarts=4, opq_iters=0,
+        opq_sample=65536: real_train(self, x, seed, 2, 1, min(opq_iters, 1),
+                                     opq_sample))
+    real_jax = chip_smoke._p10_jax
+
+    def jax_at_cells(root):
+        text = json.dumps(real_jax(root))
+        return json.loads(text.replace('"n_probe": 4096',
+                                       f'"n_probe": {cells}'))
+
+    monkeypatch.setattr(chip_smoke, "_p10_jax", jax_at_cells)
+    # level 0 of the 3,000-row graph through knn_exact, as at 1M
+    monkeypatch.setattr("vector_db_tpu_torch.index.hnsw.BULK_HOST_THRESHOLD",
+                        300)
+    _card_stubs(monkeypatch)
+    _counting(monkeypatch, port_exact, "l2_topk", l2_topk, bf16=True)
+    _counting(monkeypatch, port_exact, "block_min_scan", block_min_scan)
+    _counting(monkeypatch, port_exact, "block_topm_scan", block_topm_scan)
+    _counting(monkeypatch, port_ivf, "adc_probe_scores", adc_probe_scores)
+    _counting(monkeypatch, port_ivf, "adc_topk", adc_topk)
+    _counting(monkeypatch, port_pq, "adc_topk_long", adc_topk)
+    _counting(monkeypatch, pq_s, "adc_topk_long", adc_topk)
+    kernels = {name: {"launches": 0, "max_abs_err": 0.0} for name in (
+        "l2_topk_p10", "block_min_p10", "adc_topk_p10_k100",
+        "adc_topk_p10_k400", "l2_topk_bf16", "block_topm", "adc_probe",
+        "adc_topk")}
+
+    chip_smoke.phase_bench_scripts(torch, kernels, "card, 700 W",
+                             torch.device("cpu"))
+    out = capsys.readouterr().out
+    for script in chip_smoke.P10_SCRIPTS:
+        result = [line for line in out.splitlines()
+                  if line.startswith(f"phase 10 {script} result")]
+        assert len(result) == 1, script
+        line = json.loads(result[0].split("]: ", 1)[1])
+        assert line["card"] == "card, 700 W"
+        assert f"phase 10 {script}: " in out
+    for part in ("phase 10 l2_topk f32", "phase 10 block_min bf16 SIFT",
+                 "phase 10 adc_topk", "phase 10 build_s", "phase 10 ok"):
+        assert part in out, part
+    assert all(line.startswith("phase 10 ") for line in out.splitlines())
+    for name in ("l2_topk_p10", "block_min_p10", "adc_topk_p10_k100",
+                 "adc_topk_p10_k400"):
+        rec = kernels[name]
+        assert rec["launches"] > 0 and rec["max_abs_err"] >= 0, rec
+        assert rec["ms"] == rec["plain_ms"] == 1.0
+        assert rec["bound_ms"] > 0 and rec["library_ms"] is None
+    for name in ("l2_topk_bf16", "block_topm", "adc_probe", "adc_topk"):
+        assert kernels[name]["launches"] > 0, name

@@ -135,3 +135,26 @@ def test_block_select_never_returns_invalid_rows():
         _, ids = fn(t(q), tab, t(q), t(x_sq), t(x), t(valid), 10)
         ids = n(ids)
         assert ((ids == -1) | (ids % 2 == 1)).all() and (ids >= 0).any()
+
+
+def test_block_select_search_approx_blocks_selects_exactly():
+    """``approx_blocks=True``: the port selects the blocks exactly (no
+    ``approx_min_k`` on the card), so its answer equals the one without the
+    flag, and its recall against f32 exact is at or above the JAX
+    function's with ``approx_blocks=True`` on the same corpus."""
+    x, q, valid = _low_rank(8, 4096, 64, 32, noise=0.05)
+    x_sq = (x * x).sum(-1)
+    tab = x.astype(jnp.bfloat16)
+    args = (t(q), t(tab.astype(np.float32)).bfloat16(), t(q), t(x_sq), t(x),
+            t(valid), 10)
+    got = px.block_select_search(*args, tile=1024, blocks_k=10,
+                                 approx_blocks=True)
+    plain = px.block_select_search(*args, tile=1024, blocks_k=10)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    want = jx.block_select_search(
+        jnp.asarray(q), jnp.asarray(tab), jnp.asarray(q), jnp.asarray(x_sq),
+        jnp.asarray(x), jnp.asarray(valid), 10, tile=1024, blocks_k=10,
+        approx_blocks=True)
+    _, truth = jx.exact_search(jnp.asarray(q), jnp.asarray(x),
+                               jnp.asarray(valid), 10)
+    assert recall(got[1], truth) >= recall(want[1], truth)

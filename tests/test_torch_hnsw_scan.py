@@ -166,8 +166,13 @@ def test_block_select_search_matches_jax(phase1):
 
 
 def test_block_select_search_approx_blocks_raises():
-    x = torch.zeros((256, 8))
-    with pytest.raises(NotImplementedError, match="approx_min_k"):
-        block_select_search(x[:2], x, x[:2], x[:, 0], x,
-                            torch.ones(256, dtype=torch.bool), 4, tile=256,
-                            approx_blocks=True)
+    """``approx_blocks=True`` (the TPU's ``approx_min_k``, which the port
+    does not have) no longer raises: it selects the blocks exactly, so the
+    answer is the one without the flag."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(1000, 8)).astype(np.float32))
+    valid = torch.ones(1000, dtype=torch.bool)
+    args = (x[:5], x, x[:5], (x * x).sum(1), x, valid, 4)
+    got = block_select_search(*args, tile=256, approx_blocks=True)
+    want = block_select_search(*args, tile=256)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

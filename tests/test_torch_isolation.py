@@ -3,8 +3,9 @@ package vector_db_tpu (FlatIndex, IVF-PQ, HNSW end to end with inserts and
 persistence, the serving layer: StorageService, IndexingService with
 autotune and sharded-hnsw, and the app factory; the sharded indexes; the
 headline benchmark bench_torch.py; the 10M scripts
-scripts/bench_10m_torch.py and scripts/dryrun_sharded_10m_torch.py), and
-never falls back to the CPU when a GPU was asked for."""
+scripts/bench_10m_torch.py and scripts/dryrun_sharded_10m_torch.py; the
+benchmark scripts of BASELINE configs 3 and 4,
+scripts/bench_{sift,pq,1m,latency}_torch.py), and never falls back to the CPU when a GPU was asked for."""
 
 import json
 import subprocess
@@ -299,6 +300,68 @@ def test_10m_scripts_never_import_jax():
     assert out.returncode == 0, out.stderr
     lines = [json.loads(line) for line in out.stdout.splitlines()]
     assert [line["N"] for line in lines] == [9000, 9000]
+
+
+def test_config_3_4_scripts_never_import_jax():
+    """scripts/bench_sift_torch.py, bench_pq_torch.py, bench_1m_torch.py
+    and bench_latency_torch.py imported and run end to end at a tiny size
+    on the CPU (the card's name stubbed, 8 queries, one timed call a row,
+    the codecs trained for 2 iterations, the 1M script's scan and IVF
+    sections) load no jax and no module of the JAX package."""
+    script = textwrap.dedent("""
+        import sys
+        import tempfile
+        from pathlib import Path
+
+        import torch
+
+        sys.path.insert(0, "scripts")
+        import bench_1m_torch as b1m
+        import bench_common_torch as common
+        import bench_latency_torch as lat
+        import bench_pq_torch as bpq
+        import bench_sift_torch as sift
+        from vector_db_tpu_torch.datasets import embedding_like, sift_like
+        from vector_db_tpu_torch.index.pq import PQCodec
+
+        torch.set_num_threads(1)
+        for m in (sift, bpq, b1m, lat):
+            m.card = lambda: "isolation rehearsal"
+        common.WARM, common.REPS = 0, 1
+        sift.B = bpq.B = 8
+        train = PQCodec.train
+        PQCodec.train = lambda self, x, seed=0, iters=100, restarts=4, \\
+            opq_iters=0, opq_sample=65536: train(self, x, seed, 2, 1,
+                                                 min(opq_iters, 1))
+        xs, qs = sift_like(1200, dim=128, seed=0, queries=8)
+        xe = embedding_like(608, 768, 0)
+        src = {"x": xs, "q": qs}
+        with tempfile.TemporaryDirectory() as tmp:
+            keep = {}
+            out = [sift.run(1200, "cpu", Path(tmp) / "s.json", source=src,
+                            k_cells=16, keep=keep),
+                   bpq.run(1200, "cpu", Path(tmp) / "p.json", source=src),
+                   b1m.run(600, "cpu", Path(tmp) / "m.json",
+                           source={"x": xe[:600], "q": xe[600:]}, b=8,
+                           k_cells=16, sections="scan,scan3p,scan2p,ivf")]
+            out.append(lat.run(600, "cpu", Path(tmp) / "l.json",
+                               sift={"ivf": keep["ivf"], "q": qs},
+                               graph_source={"x": xe[:600],
+                                             "q": xe[600:]},
+                               batches=(1, 8), reps=1))
+        assert {o["card"] for o in out} == {"isolation rehearsal"}
+        assert "jax" not in sys.modules, sorted(
+            m for m in sys.modules if m.startswith("jax"))
+        jax_pkg = sorted(m for m in sys.modules
+                         if m == "vector_db_tpu"
+                         or m.startswith("vector_db_tpu."))
+        assert not jax_pkg, jax_pkg
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = [json.loads(line) for line in out.stdout.splitlines()]
+    assert [line["N"] for line in lines] == [1200, 1200, 600, 1200]
 
 
 def test_default_device_is_cuda_and_raises_without_one():

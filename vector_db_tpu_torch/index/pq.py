@@ -12,8 +12,9 @@ ADC search. Differences:
 - ``adc_search`` modes ``"matmul"`` (default) and ``"pallas"`` both run the
   ``adc_topk`` kernel on CUDA tensors: the TPU's one-hot MXU matmul and its
   Pallas kernel are two encodings of the same LUT sum. ``"gather"`` runs
-  the kernel's plain version (the JAX reference formulation). For
-  ``top_k`` above the kernel's 256 every mode takes the plain version;
+  the kernel's plain version (the JAX reference formulation). The kernel
+  keeps lists up to 2048; a ``top_k`` past them takes passes of it, each
+  from the last launch's final (value, row) pair (``adc_topk_long``);
 - k-means initial rows come from a ``torch.Generator`` seeded from
   ``seed``, so trained codebooks differ from the JAX package's bit for bit
   but not in quality. ``PQCodec.from_arrays`` adopts trained codebooks.

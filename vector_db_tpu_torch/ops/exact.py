@@ -140,17 +140,16 @@ def block_select_search(
     sums in true f32 (over an f32 table the result is then the exact
     top-k); ``hilo_phase1`` in three bf16
     products of split operands. Blocks are selected exactly, ties to the
-    lower block. ``approx_blocks=True`` (the TPU's ``approx_min_k`` over
-    the block minima) has no CUDA counterpart and raises.
+    lower block. ``approx_blocks=True`` asks the JAX package for the TPU's
+    ``approx_min_k`` over the block minima, which has no CUDA counterpart;
+    the flag is accepted and the blocks are selected exactly, which meets
+    the approximate contract (the answer equals the one without the flag).
 
     The corpus is scored ``tile`` rows at a time and counts as padded to a
     tile multiple (padding blocks score BIG). Returns (d_sq f32[B, k], ids
     int32[B, k]) ascending, (BIG, -1) padded.
     """
-    if approx_blocks:
-        raise NotImplementedError(
-            "block_select_search(approx_blocks=True): approx_min_k is TPU "
-            "hardware with no CUDA counterpart; selection is exact")
+    del approx_blocks   # selected exactly either way (see the docstring)
     block, qblock = _SEL_BLOCK, _RERANK_QUERIES
     assert tile % block == 0
     n, dim = emb.shape
