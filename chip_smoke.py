@@ -67,8 +67,7 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    index.wide.mode: beam; the HTTP app on 127.0.0.1; each line carries
    the card's name and power limit. The launch counts are the services'
    calls alone. The storage's text fields are SVC_FIELD_CHARS wide (the
-   one cut); a StorageService at the reference's widths is timed over
-   SVC_FULL_ROWS rows beside it;
+   one cut; phase 11 runs the reference's widths);
 7. at the same deployment: a. phase 6's HNSW service restarted with
    index.autotune, its decision tables and routed calls; b. the sharded
    indexes, 4 shards on the one card, beside the unsharded ones, and the
@@ -100,11 +99,35 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    lossless rows), and each row must launch its kernels; l2_topk at k 100
    over the SIFT table, block_min over its bf16 copy and adc_topk at k 100
    and 400 over the 1M x 16 codes are held against their plain versions
-   and timed.
+   and timed;
+11. the last four JAX drivers, scripts/bench_insert.py, bench_tiered.py
+   (BASELINE config 2), bench_sharded.py and bench_api.py, by the port's
+   scripts/bench_{insert,tiered,sharded,api}_torch.py at the JAX scripts'
+   sizes (no cut): streamed inserts into a 10,000-row HNSW in both commit
+   modes (30,482 rows after); 100,000 x 384 through StorageService +
+   IndexingService at the reference's field widths with a flush per batch,
+   a restart on the same files and the ef sweep; 8 shards on the one card
+   (a 4M x 64 flat index, a 262,144 x 64 HNSW streamed into, deleted from
+   and searched under a 25 % filter); and the two HTTP services as
+   separate processes over 100,000 documents. Each script's JSON line is
+   logged; every key of the committed BENCH_INSERT.json,
+   BENCH_TIERED.json, BENCH_SHARDED.json and BENCH_API.json must be in the
+   port's, each recall at or above the JAX reading less 0.03 (the sharded
+   flat index at 1.0), each row must launch its kernels (the API's read
+   from its indexing process's /stats), and the scripts' facts hold (20
+   flushes and the restart; the streamed rows in the graph and their own
+   top-1; no deleted id back; filters; /health, /stats, both children
+   ended); l2_topk at the insert scan (B 1024 and 4096, k 200), at one
+   shard of the flat index and over tiered's bf16 mirror is held against
+   its plain version and timed.
 
 Phase 10's scripts time the classic RP / PQ and the beam rows at phase 5's
 settings, so phase 5 times each of those once; the sharded HNSW of phase 7b
 streams 2 of the service's 10 insert batches and bulk-builds the rest.
+Phase 11's runs put the reference's storage widths through an ingest and a
+restart, so phase 6 no longer times a full-width store, and phase 5 fills
+its reload's storage in one pass (phase 6 puts a million documents through
+save_many).
 
 Phases 3-6 also profile search modes (torch.profiler over 3 calls):
 device busy time, idle share of the wall time, the largest device items.
@@ -214,7 +237,7 @@ SVC_N = 1_000_000       # config.yaml: vector_db.capacity
 SVC_DIM = 384           # all-MiniLM-L6-v2 (config.yaml: embedding.dimension)
 SVC_QUERIES = 1000
 SVC_BATCH = 5000        # scripts/bench_tiered.py's batch
-SVC_BATCHES = 10
+SVC_BATCHES = 2          # streamed batches (phase 11's bench_tiered streams 19)
 SVC_SINGLE = 20         # single documents past the threshold (sync save)
 SVC_DELETE = 100
 SVC_TAGS = 10           # metadata {"tag": id % 10}: a 10 % filter
@@ -228,14 +251,10 @@ SVC_IVF_K = 256
 SVC_PQ_M = 16
 # the phase's storage content / metadata field widths. Every record here
 # ({"tag": t}, no content) fits in 64. The reference's 10,240 / 5,120
-# characters make 61,448-byte records, a 61 GB metadata file at 1M rows:
-# svc_full_width times that store's create, save_many and reopen over
-# SVC_FULL_ROWS rows, and at those rates a full-width ingest and restart
-# take more time than the phase has
+# characters make 61,448-byte records, a 61 GB metadata file at 1M rows,
+# whose ingest and restart take more time than the phase has; phase 11's
+# bench_tiered and bench_api run 100,000 rows at those widths
 SVC_FIELD_CHARS = 64
-SVC_FULL_ROWS = 50_000  # rows of the full-width StorageService timing
-SVC_FULL_CAP = 250_000  # its capacity (the deployment's 1M cut to a
-                        # quarter: the create, 46 s at 1M, scales with it)
 SVC_HTTP = {"embed": 5, "batch_docs": 1, "batch_docs_size": 50,
             "search": 50, "search_batch": 5, "health": 20, "stats": 5}
 SCAN_FLOOR = 0.97
@@ -291,6 +310,19 @@ P10_IVF_K = 4096
 P10_B = 1000            # queries of the 1M x 768 corpus
 P10_SIFT_Q = 256        # the latency benchmark's SIFT queries
 _SHARED = {}            # phases 4 and 5 leave their corpora here for 10
+# phase 11: the last four JAX drivers, at the JAX scripts' sizes
+P11_SCRIPTS = ("bench_insert_torch", "bench_tiered_torch",
+               "bench_sharded_torch", "bench_api_torch")
+P11_JAX = ("BENCH_INSERT.json", "BENCH_TIERED.json", "BENCH_SHARDED.json",
+           "BENCH_API.json")
+P11_INSERT_BASE = 10_000
+P11_TIERED_N = 100_000
+P11_SHARDED_N = 4_000_000
+P11_SHARDED_HNSW = 262_144
+P11_API_DOCS = 100_000
+P11_API_QUERIES = 2000
+P11_SLACK = 0.03        # a recall may trail the JAX package's reading by this
+P11_SELF_CHECK = 1000   # streamed rows of bench_insert held to own top-1
 # peaks for the bound (H100 SXM datasheet, at 700 W)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
@@ -1439,6 +1471,7 @@ def profile(torch, label, fn, reps: int = 3):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profiler
 
+    t_all = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     with profiler(activities=[ProfilerActivity.CPU,
@@ -1455,7 +1488,9 @@ def profile(torch, label, fn, reps: int = 3):
         log(f"{label} profile: no device time in the trace (not measured)")
         return rows
     top = sorted(rows, key=lambda r: -r.self_device_time_total)[:6]
-    log(f"{label} profile: wall {wall * 1e3:.1f} ms/call, device busy "
+    log(f"{label} profile ({time.perf_counter() - t_all:.1f} s with the "
+        f"warm-up and the profiler's processing): wall "
+        f"{wall * 1e3:.1f} ms/call, device busy "
         f"{busy * 1e3:.1f} ms/call, idle share {1 - busy / wall:.3f}; "
         "largest: " + "; ".join(
             f"{r.key[:48]} {r.self_device_time_total / reps / 1e3:.2f} ms "
@@ -1568,17 +1603,23 @@ def insert_scan_check(torch, idx, batch, say=log) -> float:
     return err
 
 
-def check_inserted(torch, idx, x, n_build):
-    """The streamed rows are in the graph: each has a level-0 out-edge,
-    >= 99 % an in-edge; no row has a self-edge or a repeated edge; the
-    levels mirror is the device's; the first SELF_CHECK are their own top-1
-    under the classic beam on >= 99 %."""
+def check_inserted(torch, idx, x, n_build, n_end=None, sample=None,
+                   say=log):
+    """The streamed rows (ids n_build..n_end, by default to HNSW_N) are in
+    the graph: each has a level-0 out-edge, >= 99 % an in-edge; no row has
+    a self-edge or a repeated edge; the levels mirror is the device's; the
+    rows of ``sample`` (by default the first SELF_CHECK) are their own
+    top-1 under the classic beam on >= 99 %. The graph's M and depth are
+    the index's own."""
     from vector_db_tpu_torch.index import hnsw_kernels as HK
 
+    n_end = HNSW_N if n_end is None else n_end
+    if sample is None:
+        sample = np.arange(n_build, n_build + SELF_CHECK)
     g = idx.graph
     nb = g.neighbors
-    m2 = 2 * HNSW_M
-    slots = torch.tensor([idx._slot_of_id[i] for i in range(n_build, HNSW_N)],
+    m2 = 2 * idx.M
+    slots = torch.tensor([idx._slot_of_id[i] for i in range(n_build, n_end)],
                          device=nb.device)
     out_deg = (nb[slots, :m2] >= 0).sum(1)
     if int((out_deg < 1).sum()):
@@ -1593,37 +1634,38 @@ def check_inserted(torch, idx, x, n_build):
     own = torch.arange(nb.shape[0], device=nb.device, dtype=nb.dtype)
     if bool((nb == own[:, None]).any()):
         raise AssertionError("a row has an edge to itself")
-    for level in range(HNSW_LMAX):
-        start = HK.level_col_start(level, HNSW_M)
-        srt = nb[:, start:start + HK.level_width(level, HNSW_M)].sort(1).values
+    for level in range(idx.l_max):
+        start = HK.level_col_start(level, idx.M)
+        srt = nb[:, start:start + HK.level_width(level, idx.M)].sort(1).values
         rep = int(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).sum())
         if rep:
             raise AssertionError(f"{rep} repeated edges at level {level}")
     if not np.array_equal(g.levels.cpu().numpy(), idx._levels_host):
         raise AssertionError("levels mirror differs from the device levels")
-    _, ids = idx.search_batch(x[n_build:n_build + SELF_CHECK], 1,
-                              ef=CLASSIC_EF)
-    own_top1 = float(np.mean(ids[:, 0] == np.arange(n_build,
-                                                    n_build + SELF_CHECK)))
+    _, ids = idx.search_batch(x[sample], 1, ef=CLASSIC_EF)
+    own_top1 = float(np.mean(ids[:, 0] == sample))
     if own_top1 < 0.99:
         raise AssertionError(f"inserted rows: own top-1 on {own_top1}")
-    log(f"inserted rows: all with a level-0 out-edge, {no_in} of "
+    say(f"inserted rows: all with a level-0 out-edge, {no_in} of "
         f"{slots.numel()} without an in-edge; no self or repeated edge in "
         f"the table; levels mirror equal; own top-1 (classic, ef "
-        f"{CLASSIC_EF}) on {own_top1:.4f} of the first {SELF_CHECK}")
+        f"{CLASSIC_EF}) on {own_top1:.4f} of {len(sample)} (ids "
+        f"{int(sample[0])}..{int(sample[-1])})")
     return no_in, own_top1
 
 
 def hnsw_persist(torch, idx, x, queries):
     """save_index to a temporary directory, then a reload into a new
-    HNSW(device="cuda") over MMapNodeStorage holding the live rows (filled
-    by save_many in chunks): the tables and the id map bit-equal, nothing
-    to re-link, the same ids on the B queries (classic). Returns (npz
-    bytes, save s, storage fill s, load s)."""
+    HNSW(device="cuda") over MMapNodeStorage holding the live rows (its
+    embedding file written in one numpy pass in the storage's row layout,
+    then opened: the reopen's rescan; phase 6 puts a million documents
+    through save_many): the tables and the id map bit-equal, nothing to
+    re-link, the same ids on the B queries (classic). Returns (npz bytes,
+    save s, storage fill s, load s)."""
     import tempfile
     from pathlib import Path
 
-    from vector_db_tpu_torch import HNSW, Node
+    from vector_db_tpu_torch import HNSW
     from vector_db_tpu_torch.storage import MMapNodeStorage
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1636,13 +1678,21 @@ def hnsw_persist(torch, idx, x, queries):
         id_map = idx._store.export_id_map()
         live = np.sort(id_map[id_map >= 0])
         t0 = time.perf_counter()
+        rows = np.memmap(Path(tmp) / "emb.npy", mode="w+", shape=(HNSW_N,),
+                         dtype=[("id", np.int64),
+                                ("embedding", np.float32, (HNSW_DIM,))])
+        rows["id"] = -1
+        rows["id"][:live.size] = live
+        rows["embedding"][:live.size] = x[live]
+        rows.flush()
+        del rows
         storage = MMapNodeStorage(Path(tmp) / "emb.npy",
                                   Path(tmp) / "meta.npy", dim=HNSW_DIM,
                                   capacity=HNSW_N, content_chars=16,
                                   metadata_chars=16)
-        for s in range(0, live.size, 65536):
-            storage.save_many([Node(id=int(i), embedding=x[i])
-                               for i in live[s:s + 65536]])
+        if storage.size() != live.size:
+            raise AssertionError(f"reopened storage: {storage.size()} rows, "
+                                 f"not {live.size}")
         fill_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         again = HNSW(M=4, ef_construction=10, rng=random.Random(0),
@@ -1678,8 +1728,9 @@ def hnsw_persist(torch, idx, x, queries):
         del again
     idx.index_file = None
     log(f"persistence: save_index {save_s:.2f} s ({nbytes} bytes of npz); "
-        f"MMapNodeStorage filled with {live.size} rows by save_many in "
-        f"chunks of 65536 in {fill_s:.1f} s; load (HNSW(index_file=...): "
+        f"MMapNodeStorage over {live.size} rows (its embedding file "
+        f"written in one pass, then reopened) in {fill_s:.1f} s; load "
+        f"(HNSW(index_file=...): "
         f"npz, hydration from storage, recover_unlinked) {load_s:.2f} s; "
         f"tables, id map and levels bit-equal; classic ids equal on {B} "
         f"queries, search_batch_pq and search_batch_rp ids on {PERSIST_Q} "
@@ -1795,14 +1846,14 @@ def hnsw_modes(torch, kernels, idx, x, queries, truth, batches, deleted):
     log("floors held; distances exact and ascending on 8 queries a row; "
         f"sorted_topk {WIDE_T} launches a call on the wide rows, none on "
         "the classic and beam rows")
-    for name, call, kw, reps in (
+    for name, call, kw in (
             ("beam_224", idx.search_batch_beam,
-             dict(k=K, frontier=224, steps=BEAM_T, hist=BEAM_HIST), 3),
+             dict(k=K, frontier=224, steps=BEAM_T, hist=BEAM_HIST)),
             ("wide_pq", idx.search_batch_wide,
-             dict(k=K, score="pq", merge_kernel=True, **WIDE_PQ), 3),
+             dict(k=K, score="pq", merge_kernel=True, **WIDE_PQ)),
             (f"pq_{HNSW_PQ_EF}", idx.search_batch_pq,
-             dict(k=K, ef=HNSW_PQ_EF, expand=4), 1)):
-        profile(torch, name, lambda: call(batches[0], **kw), reps=reps)
+             dict(k=K, ef=HNSW_PQ_EF, expand=4))):
+        profile(torch, name, lambda: call(batches[0], **kw), reps=1)
     return {"seconds": times, "qps": qps, "recall": recalls,
             "peak": peak, "inline_bytes": inline_bytes}
 
@@ -1891,7 +1942,9 @@ def phase_hnsw(torch, kernels):
     sorted_row_ms = None
     for name, kw in modes.items():
         call = idx.search_batch if name == "classic" else idx.search_batch_wide
-        rows = profile(torch, name, lambda: call(batches[0], **kw))
+        # one call each: the profiler's processing of the classic call's
+        # ~6,000 small ops takes ~25 s a call
+        rows = profile(torch, name, lambda: call(batches[0], **kw), reps=1)
         if name == "wide_merge_kernel":
             sorted_row_ms = kernel_row_ms(rows, "sorted_topk_kernel")
     if launches["wide_merge_kernel"] != WIDE_T * calls or \
@@ -2329,51 +2382,6 @@ def svc_kernel_checks(torch, say, svc, queries, allowed):
     return errs
 
 
-def svc_full_width(say, tmp, nodes):
-    """A StorageService at the reference's field widths (MMapNodeStorage's
-    defaults, 10,240 / 5,120 characters) and a quarter of the deployment's
-    capacity (SVC_FULL_CAP): create, save_many of the first SVC_FULL_ROWS
-    nodes in batches of SVC_BATCH, then a reopen (the restart's metadata
-    hydration). Returns (save_many docs/s, reopen s)."""
-    import shutil
-
-    from vector_db_tpu_torch.services.storage_service import StorageService
-
-    path = tmp / "full" / "vdb"
-    t0 = time.perf_counter()
-    st = StorageService(str(path), dim=SVC_DIM, capacity=SVC_FULL_CAP)
-    create_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for s in range(0, SVC_FULL_ROWS, SVC_BATCH):
-        st.save_many(nodes[s:min(s + SVC_BATCH, SVC_FULL_ROWS)])
-    save_s = time.perf_counter() - t0
-    st.close()
-    meta = path.with_suffix(".metadata.npy")
-    apparent, on_disk = os.path.getsize(meta), os.stat(meta).st_blocks * 512
-    t0 = time.perf_counter()
-    st = StorageService(str(path), dim=SVC_DIM, capacity=SVC_FULL_CAP)
-    reopen_s = time.perf_counter() - t0
-    tagged = len(st.filter_by_metadata({"tag": 3}))
-    if st.size() != SVC_FULL_ROWS or tagged != len(range(3, SVC_FULL_ROWS,
-                                                         SVC_TAGS)):
-        raise AssertionError(f"full-width storage: {st.size()} rows, "
-                             f"{tagged} tagged 3")
-    st.close()
-    shutil.rmtree(tmp / "full")
-    rate = SVC_FULL_ROWS / save_s
-    say(f"StorageService at the reference's widths (content 10,240 / "
-        f"metadata 5,120 characters, capacity {SVC_FULL_CAP}): create "
-        f"{create_s:.2f} s (at {SVC_N} rows "
-        f"{create_s * SVC_N / SVC_FULL_CAP:.1f} s, linear), save_many of "
-        f"{SVC_FULL_ROWS} docs in batches of {SVC_BATCH} {save_s:.2f} s "
-        f"({rate:.1f} docs/s, host clock), reopen with the metadata "
-        f"hydration {reopen_s:.2f} s; metadata file {apparent} bytes, "
-        f"{on_disk} on disk; at {SVC_N} rows the same rates would take "
-        f"{SVC_N / rate:.1f} s to save and "
-        f"{reopen_s * SVC_N / SVC_FULL_ROWS:.1f} s to reopen (linear)")
-    return rate, reopen_s
-
-
 def svc_small_types(torch, say, tmp, x, queries):
     """Step e: a flat (f32) and an IVF-PQ service over the first
     SVC_SMALL_N rows; their answers equal the direct index calls (made
@@ -2737,8 +2745,6 @@ def phase_services(torch, kernels, card):
     say(f"corpus {SVC_N} x {SVC_DIM} (embedding_like seed 2), {SVC_QUERIES} "
         f"queries and {SVC_N} Nodes made ({time.perf_counter() - t0:.1f} s, "
         "host)")
-    with tempfile.TemporaryDirectory() as tmp:
-        full_rate, full_reopen_s = svc_full_width(say, Path(tmp), nodes)
     real_mmap = storage_service.MMapNodeStorage
     storage_service.MMapNodeStorage = functools.partial(
         MMapNodeStorage, content_chars=SVC_FIELD_CHARS,
@@ -2854,9 +2860,7 @@ def phase_services(torch, kernels, card):
         storage_service.MMapNodeStorage = real_mmap
     say(f"services summary: ingest docs/s bulk {a['bulk_docs_s']:.1f}, "
         f"streamed {a['stream_docs_s']:.1f} (storage fields "
-        f"{SVC_FIELD_CHARS} characters; full-width save_many "
-        f"{full_rate:.1f} docs/s over {SVC_FULL_ROWS} rows, reopen "
-        f"{full_reopen_s:.2f} s); flushes {a['flushes']}; time to "
+        f"{SVC_FIELD_CHARS} characters); flushes {a['flushes']}; time to "
         f"serve {serve_s:.2f} s; single insert p50 "
         f"{np.percentile(single, 50):.1f} / max {max(single):.1f} ms; QPS "
         f"{d['qps']}; recall@{K} {d['recall']} (wide at ef "
@@ -2894,20 +2898,9 @@ def _reset_counts():
 
 def _counts():
     """Each kernel's launches since the last _reset_counts."""
-    from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
-    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
-    from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
-    from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
-    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
-    from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
+    from vector_db_tpu_torch.ops.cuda import launch_counts
 
-    return {"l2_topk": l2_topk.launches - l2_topk.launches_bf16,
-            "l2_topk_bf16": l2_topk.launches_bf16,
-            "sorted_topk": sorted_topk.launches,
-            "adc_probe": adc_probe_scores.launches,
-            "adc_topk": adc_topk.launches,
-            "block_min": block_min_scan.launches,
-            "block_topm": block_topm_scan.launches}
+    return launch_counts()
 
 
 def _launched(path, counts, names) -> None:
@@ -3250,8 +3243,9 @@ def sharded_ivf(torch, say, mesh, x, live, queries, truth, batches):
 def sharded_hnsw_modes(torch, say, kernels, h, ref, queries, truths,
                        allowed, deleted):
     """Phase 7b, c: the sharded HNSW's searches at B = len(queries), each
-    timed once and held to phase 6's unsharded HNSW at the same settings
-    (its calls uncounted): recall against each index's own f32 scan
+    timed once (after a warm-up on 8 queries only where the call builds
+    the wide mirrors) and held to phase 6's unsharded HNSW at the same
+    settings (its calls uncounted): recall against each index's own f32 scan
     (``truths``: sharded, sharded filtered, unsharded, unsharded
     filtered), no sharded recall below the unsharded one less SH_SLACK;
     sorted_topk at the sharded wide merges against its plain version.
@@ -3281,8 +3275,9 @@ def sharded_hnsw_modes(torch, say, kernels, h, ref, queries, truths,
                                                  **SH_BEAM)),
     })
 
-    def timed(call):
-        call(queries[:8])                   # warm: the mirrors build
+    def timed(call, warm):
+        if warm:
+            call(queries[:8])               # the mirrors build
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, ids = call(queries)
@@ -3292,13 +3287,16 @@ def sharded_hnsw_modes(torch, say, kernels, h, ref, queries, truths,
     rows = {}
     for name, (call, unsharded) in modes.items():
         f = name.startswith("filtered")
-        got, qps = timed(call)
+        # the classic loop takes as many steps for 8 queries as for all,
+        # and the beam reads the tables the wide rows built
+        warm = name.startswith("wide")
+        got, qps = timed(call, warm)
         if set(got.ravel().tolist()) & deleted:
             raise AssertionError(f"sharded {name}: a deleted id")
         if f and not set(got[got >= 0].tolist()) <= allowed:
             raise AssertionError(f"sharded {name}: outside the filter")
         with uncounted():
-            ref_got, ref_qps = timed(unsharded)
+            ref_got, ref_qps = timed(unsharded, warm)
         rows[name] = {"recall": recall_at(got, truths[int(f)]), "qps": qps,
                       "unsharded_recall": recall_at(ref_got, truths[2 + f]),
                       "unsharded_qps": ref_qps}
@@ -4073,6 +4071,290 @@ def phase_bench_scripts(torch, kernels, card, dev):
     log(f"phase 10 ok on {card} ({time.perf_counter() - t0:.1f} s)")
 
 
+
+def _p11_jax(root) -> dict:
+    """The JAX package's readings, by port script: the committed
+    BENCH_*.json."""
+    return {m: json.loads((root / f).read_text())
+            for m, f in zip(P11_SCRIPTS, P11_JAX)}
+
+
+def p11_hold(script: str, res: dict, jax: dict) -> dict:
+    """A script's results against the JAX package's file: every key of the
+    JAX file is in the port's (named as ``_leaves`` names it), and each
+    recall is at or above the JAX reading less P11_SLACK (the sharded flat
+    index's at 1.0: it is the f32 exact scan). Returns {row: (port,
+    JAX)}."""
+    got = {(path, key): val for path, key, val in _leaves(res)}
+    missing = sorted(f"{path}.{key}".strip(".") for path, key, _ in
+                     _leaves(jax) if (path, key) not in got)
+    if missing:
+        raise AssertionError(f"{script}: JAX keys missing: {missing}")
+    pairs = {}
+    for path, key, want in _leaves(jax):
+        if "recall" not in key or not isinstance(want, float):
+            continue
+        name = f"{path}.{key}".strip(".")
+        floor = 1.0 if key == "recall_vs_bruteforce" else want - P11_SLACK
+        if got[(path, key)] < floor:
+            raise AssertionError(f"{script} {name}: recall "
+                                 f"{got[(path, key)]} < {floor} (JAX {want})")
+        pairs[name] = (got[(path, key)], want)
+    return pairs
+
+
+# the kernels a phase 11 row must launch, by script and row name (the
+# bench_insert rows each launch l2_topk)
+P11_NEED = {
+    "bench_tiered_torch": {"ingest": ("l2_topk",),
+                           "truth_launches": ("l2_topk",),
+                           "bf16_scan": ("l2_topk_bf16",)},
+    "bench_sharded_torch": {"flat_4m.search_launches": ("l2_topk",),
+                            "hnsw_256k.build_launches": ("l2_topk",)},
+    "bench_api_torch": {"ingest": ("l2_topk",),
+                        "search_filtered_launches": ("l2_topk_bf16",)},
+}
+
+
+def p11_row_kernels(script: str, res: dict) -> dict:
+    """Each row's launches hold the kernels its path must launch, and no
+    row launches sorted_topk: the wide routes merge in plain torch, as the
+    JAX configs ask (no ``merge_kernel``). Returns the rows' launches."""
+    rows = _row_launches(res)
+    need = P11_NEED.get(script, {})
+    for name in need:
+        if name not in rows:
+            raise AssertionError(f"{script}: no launches recorded for {name}")
+    for name, launched in rows.items():
+        want = ("l2_topk",) if script == "bench_insert_torch" else \
+            need.get(name, ())
+        for k in want:
+            if launched.get(k, 0) <= 0:
+                raise AssertionError(f"{script} {name}: {k} not launched "
+                                     f"({launched})")
+        if launched.get("sorted_topk"):
+            raise AssertionError(f"{script} {name}: sorted_topk launched")
+    return rows
+
+
+def p11_time(torch, kernels, name, card, label, q, tab, valid, k, x_sq,
+             err) -> None:
+    """Record ``name``: l2_topk at these inputs (held already, max abs err
+    ``err``), its time, its plain version's and its bound; torch.matmul of
+    the product is logged beside."""
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
+
+    n, d = tab.shape
+    b = q.shape[0]
+    rec = kernels[name]
+    rec.update(max_abs_err=err,
+               ms=cuda_ms(torch, lambda: l2_topk(q, tab, valid, k,
+                                                 x_sq=x_sq)),
+               plain_ms=cuda_ms(torch, lambda: l2_topk_plain(q, tab, valid,
+                                                             k, x_sq)))
+    bf16 = tab.dtype == torch.bfloat16
+    set_bound(rec, n * (d * tab.element_size() + 5) + b * d * 4 + b * k * 8,
+              (1.0 if bf16 else 3.0) * 2.0 * b * n * d,
+              BF16_TC_FLOPS if bf16 else TF32_TC_FLOPS)
+    qm = q.to(tab.dtype)
+    mm = cuda_ms(torch, lambda: torch.matmul(qm, tab.T))
+    log(f"phase 11 {label}: l2_topk {tab.dtype} N={n} d={d} B={b} k={k} "
+        f"[{card}]: kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
+        f"ms, torch.matmul of the product {mm:.3f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max abs err {err}")
+
+
+def p11_insert(torch, kernels, card, dev, one):
+    """bench_insert_torch at P11_INSERT_BASE: corpus_after exact, the
+    streamed rows checked in the graph (a sample of P11_SELF_CHECK across
+    both commit modes their own top-1), the level-0 candidate scan held at
+    B 1024 and 4096 and timed, each record with the launches of the rows
+    at its batch size."""
+    from vector_db_tpu_torch.ops.distance import squared_norms
+
+    keep = {}
+    res = one("bench_insert_torch", P11_INSERT_BASE, "BENCH_INSERT_TORCH.json",
+              keep=keep)
+    mod = sys.modules["bench_insert_torch"]
+    idx, x, base = keep["hnsw"], keep["x"], keep["base"]
+    end = base + 2 * len(mod.MODES) * sum(mod.BATCHES) + len(mod.MODES)
+    if res["corpus_after"] != end or idx.size != end:
+        raise AssertionError(f"bench_insert: corpus_after "
+                             f"{res['corpus_after']}, not {end}")
+    sample = np.linspace(base, end - 1, P11_SELF_CHECK).astype(np.int64)
+    check_inserted(torch, idx, x, base, end, sample,
+                   say=lambda m: log(f"phase 11 bench_insert {m}"))
+    emb = idx._emb
+    valid = idx._has_emb & (idx.graph.levels >= 0)
+    x_sq = squared_norms(emb)
+    rows = _row_launches(res)
+    for bs in mod.BATCHES:
+        err = insert_scan_check(torch, idx, x[base:base + bs],
+                                say=lambda m: log(f"phase 11 {m}"))
+        q = torch.from_numpy(np.ascontiguousarray(x[base:base + bs])).to(dev)
+        name = f"l2_topk_p11_b{bs}"
+        p11_time(torch, kernels, name, card, f"bench_insert level-0 scan "
+                 f"(B {bs})", q, emb, valid, HNSW_EFC, x_sq, err)
+        kernels[name]["launches"] = sum(
+            r.get("l2_topk", 0) for n, r in rows.items()
+            if f"_batch_{bs}_" in n)
+    keep.clear()
+
+
+def p11_tiered(torch, kernels, card, one):
+    """bench_tiered_torch at P11_TIERED_N: a flush per batch, the restart's
+    facts, the bf16 scan row's l2_topk held at its inputs and timed, its
+    record with that row's launches."""
+    from vector_db_tpu_torch.ops import exact
+
+    keep = {}
+    res = one("bench_tiered_torch", P11_TIERED_N, "BENCH_TIERED_TORCH.json",
+              keep=keep)
+    mod = sys.modules["bench_tiered_torch"]
+    batches = math.ceil(P11_TIERED_N / mod.BATCH)
+    svc = keep["svc"]
+    if res["ingest"]["flushes"] != batches:
+        raise AssertionError(f"bench_tiered: {res['ingest']['flushes']} "
+                             f"flushes, not {batches}")
+    if not (res["resume"]["index_loaded"] and svc.is_index_loaded()
+            and res["resume"]["storage_size"] == P11_TIERED_N
+            and svc.get_index_size() == P11_TIERED_N):
+        raise AssertionError(f"bench_tiered restart: {res['resume']}, index "
+                             f"{svc.get_index_size()}")
+    q = keep["q"]
+    index = svc.index
+    seen = captured(exact, "l2_topk", lambda: index.search_batch_scan(
+        q, K, mode="bf16"))
+    err = check_l2_calls(
+        torch, lambda m: log(f"phase 11 {m}"), "bench_tiered bf16_scan",
+        lambda: index.search_batch_scan(q, K, mode="bf16"), torch.bfloat16)
+    (qd, tab, valid, k), opts = seen[0]
+    p11_time(torch, kernels, "l2_topk_bf16_p11", card,
+             "bench_tiered bf16_scan", qd, tab, valid, k, opts["x_sq"], err)
+    kernels["l2_topk_bf16_p11"]["launches"] = \
+        res["bf16_scan"]["launches"]["l2_topk_bf16"]
+    keep.clear()
+
+
+def p11_sharded(torch, kernels, card, one):
+    """bench_sharded_torch at P11_SHARDED_N and P11_SHARDED_HNSW rows over 8
+    shards: a search launches l2_topk once a shard; the kernel held at one
+    shard's inputs and timed, its record with the searches' launches (the
+    warm-up and the timed one)."""
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
+
+    keep = {}
+    res = one("bench_sharded_torch", P11_SHARDED_N,
+              "BENCH_SHARDED_TORCH.json", n_hnsw=P11_SHARDED_HNSW, keep=keep)
+    shards = sys.modules["bench_sharded_torch"].SHARDS
+    per_search = res["flat_4m"]["search_launches"].get("l2_topk", 0)
+    if res["mesh_devices"] != shards or per_search != shards:
+        raise AssertionError(f"bench_sharded: {res['mesh_devices']} shards, "
+                             f"{per_search} l2_topk launches a search")
+    flat, q = keep["flat"], keep["flat_q"]
+    qd = torch.from_numpy(q).to(flat._emb[0].device)
+    tab, valid = flat._emb[0], flat._valid[0]
+    x_sq = (tab * tab).sum(-1)
+    k = K
+    err = check_topk(f"bench_sharded shard: l2_topk f32 n={tab.shape[0]} "
+                     f"d={tab.shape[1]} b={qd.shape[0]} k={k}",
+                     *l2_topk(qd, tab, valid, k, x_sq=x_sq),
+                     *l2_topk_plain(qd, tab, valid, k + 1, x_sq), group=k,
+                     scale=terms(qd, x_sq))
+    p11_time(torch, kernels, "l2_topk_p11_shard", card,
+             "bench_sharded flat shard", qd, tab, valid, k, x_sq, err)
+    kernels["l2_topk_p11_shard"]["launches"] = 2 * per_search
+    keep.clear()
+
+
+def p11_api(torch, kernels, card, one):
+    """bench_api_torch at P11_API_DOCS documents, its two services as
+    children: /health at the document count, /stats names the card, both
+    children gone at the end. Returns the indexing child's (f32, bf16)
+    l2_topk launches (read from its /stats by the script)."""
+    keep = {}
+    res = one("bench_api_torch", P11_API_DOCS, "BENCH_API_TORCH.json",
+              n_queries=P11_API_QUERIES, keep=keep)
+    name = torch.cuda.get_device_name(0)
+    if res["health"]["index_size"] != P11_API_DOCS:
+        raise AssertionError(f"bench_api /health: {res['health']}")
+    if not any(name in d for d in res["stats_devices"]):
+        raise AssertionError(f"bench_api /stats: {res['stats_devices']}")
+    alive = [p.pid for p in keep["procs"] if p.poll() is None]
+    if len(keep["procs"]) != 2 or alive:
+        raise AssertionError(f"bench_api children still running: {alive}")
+    rows = _row_launches(res).values()
+    log(f"phase 11 bench_api: /health index size {P11_API_DOCS}, /stats "
+        f"names {res['stats_devices']}, both children ended (codes "
+        f"{[p.returncode for p in keep['procs']]})")
+    return (sum(r.get("l2_topk", 0) for r in rows),
+            sum(r.get("l2_topk_bf16", 0) for r in rows))
+
+
+def phase_tail_drivers(torch, kernels, card, dev):
+    """Phase 11: the last four JAX drivers by the port's
+    scripts/bench_{insert,tiered,sharded,api}_torch.py at the JAX scripts'
+    sizes: three in this process, the API's services as two child
+    processes. Each script's line is logged, every key of the committed
+    BENCH_{INSERT,TIERED,SHARDED,API}.json held by name, each recall to the
+    JAX reading less P11_SLACK, each row's kernels as launched, the
+    scripts' facts (flushes, restart, self top-1, no deleted id, filters,
+    the children), and the new shapes of l2_topk against their plain
+    versions with their times."""
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    modules = dict(zip(P11_SCRIPTS, _scripts(P11_SCRIPTS)))
+    jax = _p11_jax(Path(__file__).resolve().parent)
+    counts, seconds = {}, {}
+
+    def one(name, n, out_name, **kw):
+        t1 = time.perf_counter()
+        _reset_counts()
+        res, line = _run_script(modules[name], n, dev, out_name, **kw)
+        counts[name] = _counts()
+        seconds[name] = time.perf_counter() - t1
+        log(f"phase 11 {name} result [{card}]: {line}")
+        held = p11_hold(name, res, jax[name])
+        rows = p11_row_kernels(name, res)
+        log(f"phase 11 {name}: every key of the JAX file present; recalls "
+            f"(port, JAX) {held}; row launches {rows}; launches in this "
+            f"process {counts[name]} ({seconds[name]:.1f} s)")
+        return res
+
+    p11_insert(torch, kernels, card, dev, one)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p11_tiered(torch, kernels, card, one)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p11_sharded(torch, kernels, card, one)
+    gc.collect()
+    torch.cuda.empty_cache()
+    api_f32, api_bf16 = p11_api(torch, kernels, card, one)
+    total = {k: sum(c[k] for c in counts.values()) for k in _counts()}
+    # the launches outside the new shapes' records (the 1-row inserts, the
+    # tiered ingest and truth, the sharded build's knn_exact, the API's)
+    timed = [kernels[f"l2_topk_p11_{t}"]["launches"] for t in (
+        *(f"b{bs}" for bs in modules["bench_insert_torch"].BATCHES),
+        "shard")]
+    if min(timed) <= 0 or sum(timed) > total["l2_topk"] or \
+            kernels["l2_topk_bf16_p11"]["launches"] > total["l2_topk_bf16"]:
+        raise AssertionError(f"phase 11: records {timed} against {total}")
+    kernels["l2_topk"]["launches"] += total["l2_topk"] - sum(timed) + api_f32
+    kernels["l2_topk_bf16"]["launches"] += (
+        total["l2_topk_bf16"] - kernels["l2_topk_bf16_p11"]["launches"]
+        + api_bf16)
+    _launched("phase 11", total, ("l2_topk", "l2_topk_bf16"))
+    if total["sorted_topk"] or api_f32 <= 0 or api_bf16 <= 0:
+        raise AssertionError(f"phase 11 launches: {total}; the API's "
+                             f"indexing process {api_f32} f32, {api_bf16} "
+                             "bf16")
+    log(f"phase 11 seconds per script {seconds}; launches in this process "
+        f"{total}, in the API's indexing process l2_topk f32 {api_f32}, "
+        f"bf16 {api_bf16}")
+    log(f"phase 11 ok on {card} ({time.perf_counter() - t0:.1f} s)")
+
 def main() -> int:
     import torch
 
@@ -4151,6 +4433,22 @@ def main() -> int:
                                   "vector_db_tpu_torch/csrc/adc_scan.cu",
                               "replaces":
                                   "vector_db_tpu/ops/pallas/adc_scan.py:80"},
+        "l2_topk_p11_b1024": {"name": "l2_topk_p11_b1024", "route": "cuda",
+                              "source": "vector_db_tpu_torch/csrc/l2_topk.cu",
+                              "replaces":
+                                  "vector_db_tpu/ops/pallas/l2_topk.py:70"},
+        "l2_topk_p11_b4096": {"name": "l2_topk_p11_b4096", "route": "cuda",
+                              "source": "vector_db_tpu_torch/csrc/l2_topk.cu",
+                              "replaces":
+                                  "vector_db_tpu/ops/pallas/l2_topk.py:70"},
+        "l2_topk_p11_shard": {"name": "l2_topk_p11_shard", "route": "cuda",
+                              "source": "vector_db_tpu_torch/csrc/l2_topk.cu",
+                              "replaces":
+                                  "vector_db_tpu/ops/pallas/l2_topk.py:70"},
+        "l2_topk_bf16_p11": {"name": "l2_topk_bf16_p11", "route": "cuda",
+                             "source": "vector_db_tpu_torch/csrc/l2_topk.cu",
+                             "replaces":
+                                 "vector_db_tpu/ops/pallas/l2_topk.py:70"},
         "sorted_topk": {"name": "sorted_topk", "route": "cuda",
                         "source": "vector_db_tpu_torch/csrc/sorted_topk.cu",
                         "replaces":
@@ -4189,6 +4487,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_bench_scripts(torch, kernels, card, dev)
+    # phase 10's indexes were its locals; the API's children of phase 11
+    # find the card's memory free
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_tail_drivers(torch, kernels, card, dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     if any(m == "vector_db_tpu" or m.startswith("vector_db_tpu.")

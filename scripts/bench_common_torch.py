@@ -1,6 +1,7 @@
-"""What the port's benchmark scripts (scripts/bench_{sift,pq,1m,latency}
-_torch.py) share: the log, the card's name, the row timing of the JAX
-scripts' ``timed``, recall, the JSON file and the command-line entry.
+"""What the port's benchmark scripts (scripts/bench_{sift,pq,1m,latency,
+insert,tiered,sharded,api}_torch.py) share: the log, the card's name, the
+row timing of the JAX scripts' ``timed``, each row's kernel launches,
+recall, the JSON file and the command-line entry.
 
 Imports torch, numpy and ``vector_db_tpu_torch`` only.
 """
@@ -23,6 +24,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from vector_db_tpu_torch.device import resolve_device  # noqa: E402
+from vector_db_tpu_torch.ops.cuda import launch_counts  # noqa: E402,F401
 
 WARM = 3      # warm-up calls of a timed row (the JAX scripts' timed)
 REPS = 3      # timed calls of a row
@@ -109,25 +111,6 @@ def batch_ms(run, q: np.ndarray, cuda: bool, reps: int = 5):
             dev_ms.append(start.elapsed_time(end))
     return (statistics.median(walls) * 1e3,
             statistics.median(dev_ms) if dev_ms else None)
-
-
-def launch_counts() -> dict:
-    """Each kernel wrapper's launch count so far (a wrapper adds one where
-    it launches its kernel, never on the CPU's plain version)."""
-    from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
-    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
-    from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
-    from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
-    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
-    from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
-
-    return {"l2_topk": l2_topk.launches - l2_topk.launches_bf16,
-            "l2_topk_bf16": l2_topk.launches_bf16,
-            "block_min": block_min_scan.launches,
-            "block_topm": block_topm_scan.launches,
-            "adc_probe": adc_probe_scores.launches,
-            "adc_topk": adc_topk.launches,
-            "sorted_topk": sorted_topk.launches}
 
 
 def launches_since(before: dict) -> dict:

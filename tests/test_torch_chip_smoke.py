@@ -12,7 +12,9 @@ and launch nothing) replaced by ones that count as a launch would.
 """
 
 import json
+import os
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,12 +34,13 @@ from tests.torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
+ROOT = Path(__file__).resolve().parent.parent
+
 SIZES = dict(SVC_N=5100, SVC_DIM=32, SVC_QUERIES=64, SVC_BATCH=100,
              SVC_SINGLE=3, SVC_DELETE=10, SVC_SCAN_THRESHOLD=32,
              SVC_WIDE_B=16, SVC_SINGLE_Q=5, SVC_MIN_SIZE=1024,
              SVC_SMALL_N=2000, SVC_IVF_K=16, SVC_PQ_M=8, HNSW_EFC=64,
-             HNSW_M=8, SVC_WIDE_FLOOR=0.9, SVC_FULL_ROWS=300,
-             SVC_FULL_CAP=1275,
+             HNSW_M=8, SVC_WIDE_FLOOR=0.9,
              SVC_HTTP={"embed": 2, "batch_docs": 1, "batch_docs_size": 5,
                        "search": 3, "search_batch": 1, "health": 2,
                        "stats": 1},
@@ -97,7 +100,7 @@ def test_phase_services_rehearsal(monkeypatch, capsys):
                  "service filtered route: l2_topk torch.bfloat16",
                  "insert scan level 0: l2_topk f32", "flat service: l2_topk",
                  "service wide route B = 1: sorted_topk",
-                 "ivf service: adc_probe", "at the reference's widths",
+                 "ivf service: adc_probe",
                  "ivf service at n_probe = ivf_k", "ivf rp service",
                  "hnsw rp service", "hnsw pq service", "hnsw beam service",
                  "phase 6 ok", "autotune table b8@0.95:",
@@ -456,3 +459,106 @@ def test_phase_bench_scripts_rehearsal(monkeypatch, capsys):
         assert rec["bound_ms"] > 0 and rec["library_ms"] is None
     for name in ("l2_topk_bf16", "block_topm", "adc_probe", "adc_topk"):
         assert kernels[name]["launches"] > 0, name
+
+
+COUNTING_CHILD = '''
+import vector_db_tpu_torch.ops.exact as exact
+from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+
+_real = exact.l2_topk
+
+
+def _counted(*args, **kwargs):
+    l2_topk.launches += 1
+    l2_topk.launches_bf16 += int(args[1].dtype == torch.bfloat16)
+    return _real(*args, **kwargs)
+
+
+import torch  # noqa: E402
+
+exact.l2_topk = _counted
+'''
+
+
+def test_phase_tail_drivers_rehearsal(monkeypatch, capsys, tmp_path):
+    """Phase 11, the last four JAX drivers' port scripts, at a tiny size
+    (bench_insert over 1,024 rows with batches of 64 and 128; bench_tiered
+    at 4,200 rows in batches of 4,100 with 16 queries; bench_sharded at
+    32,768 and 4,096 rows; bench_api at 4,096 documents (the wide route's
+    least size), 16 queries and 8 single searches, its two services as children whose l2_topk counts as
+    a launch through a sitecustomize on their path): each script's line
+    logged, its keys matched to the committed JAX files (the insert rows'
+    batch sizes read as the small ones), the new shapes' records filled,
+    both children ended, and the smoke's stdout left to the phase's own
+    lines."""
+    if torch.cuda.is_available():
+        pytest.skip("a CPU rehearsal: on a card, chip_smoke.py runs it")
+    ins, tier, shard, api = chip_smoke._scripts(chip_smoke.P11_SCRIPTS)
+    for module, values in (
+            (chip_smoke, dict(P11_INSERT_BASE=1024, P11_TIERED_N=4200,
+                              P11_SHARDED_N=32_768, P11_SHARDED_HNSW=4096,
+                              P11_API_DOCS=4096, P11_API_QUERIES=16,
+                              P11_SELF_CHECK=100)),
+            (ins, dict(BATCHES=(64, 128))),
+            (tier, dict(BATCH=4100, B=16, WARM=0, REPS=1)),
+            (shard, dict(STEP=4096))):
+        for name, value in values.items():
+            monkeypatch.setattr(module, name, value)
+    for module in (ins, tier, shard, api):
+        monkeypatch.setattr(module, "card", lambda: "card, 700 W")
+    real_api, real_ins, real_tier = api.run, ins.run, tier.run
+    monkeypatch.setattr(api, "run", lambda *a, **kw: real_api(
+        *a, n_single=8, **kw))
+    monkeypatch.setattr(ins, "run", lambda *a, **kw: real_ins(
+        *a, batches=ins.BATCHES, **kw))
+    monkeypatch.setattr(tier, "run", lambda *a, **kw: real_tier(
+        *a, batch=tier.BATCH, **kw))
+    real_jax = chip_smoke._p11_jax
+
+    def jax_at_batches(root):
+        out = real_jax(root)
+        text = json.dumps(out["bench_insert_torch"])
+        out["bench_insert_torch"] = json.loads(text.replace(
+            "_1024_", "_64_").replace("_4096_", "_128_"))
+        return out
+
+    monkeypatch.setattr(chip_smoke, "_p11_jax", jax_at_batches)
+    (tmp_path / "sitecustomize.py").write_text(COUNTING_CHILD)
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(tmp_path), str(ROOT)]))
+    _card_stubs(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
+    _counting(monkeypatch, port_exact, "l2_topk", l2_topk, bf16=True)
+    kernels = {name: {"launches": 0, "max_abs_err": 0.0} for name in (
+        "l2_topk", "l2_topk_bf16", "l2_topk_p11_b1024", "l2_topk_p11_b4096",
+        "l2_topk_p11_shard", "l2_topk_bf16_p11")}
+    kernels["l2_topk_p11_b64"] = kernels.pop("l2_topk_p11_b1024")
+    kernels["l2_topk_p11_b128"] = kernels.pop("l2_topk_p11_b4096")
+
+    chip_smoke.phase_tail_drivers(torch, kernels, "card, 700 W",
+                                  torch.device("cpu"))
+    out = capsys.readouterr().out
+    for script in chip_smoke.P11_SCRIPTS:
+        result = [line for line in out.splitlines()
+                  if line.startswith(f"phase 11 {script} result")]
+        assert len(result) == 1, script
+        assert json.loads(result[0].split("]: ", 1)[1])["card"] == \
+            "card, 700 W"
+        assert f"phase 11 {script}: every key of the JAX file" in out
+    for part in ("phase 11 bench_insert inserted rows",
+                 "phase 11 insert scan level 0",
+                 "bench_tiered bf16_scan: l2_topk torch.bfloat16",
+                 "phase 11 bench_sharded flat shard",
+                 "phase 11 bench_api: /health index size 4096",
+                 "both children ended", "phase 11 ok"):
+        assert part in out, part
+    assert all(line.startswith("phase 11 ") for line in out.splitlines())
+    for name in ("l2_topk_p11_b64", "l2_topk_p11_b128", "l2_topk_p11_shard",
+                 "l2_topk_bf16_p11"):
+        rec = kernels[name]
+        assert rec["launches"] > 0 and rec["max_abs_err"] >= 0, rec
+        assert rec["ms"] == rec["plain_ms"] == 1.0
+        assert rec["bound_ms"] > 0 and rec["library_ms"] is None
+    assert kernels["l2_topk_p11_shard"]["launches"] == 16
+    assert kernels["l2_topk"]["launches"] > 0
+    assert kernels["l2_topk_bf16"]["launches"] > 0

@@ -5,7 +5,10 @@ autotune and sharded-hnsw, and the app factory; the sharded indexes; the
 headline benchmark bench_torch.py; the 10M scripts
 scripts/bench_10m_torch.py and scripts/dryrun_sharded_10m_torch.py; the
 benchmark scripts of BASELINE configs 3 and 4,
-scripts/bench_{sift,pq,1m,latency}_torch.py), and never falls back to the CPU when a GPU was asked for."""
+scripts/bench_{sift,pq,1m,latency}_torch.py; the last four drivers,
+scripts/bench_{insert,tiered,sharded,api}_torch.py, and the API's two
+service processes), and never falls back to the CPU when a GPU was asked
+for."""
 
 import json
 import subprocess
@@ -370,3 +373,85 @@ def test_default_device_is_cuda_and_raises_without_one():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             FlatIndex()
+
+
+CHILD_MODULES = '''
+import atexit
+import os
+import sys
+
+
+def _report():
+    bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                 or m == "vector_db_tpu" or m.startswith("vector_db_tpu."))
+    out = os.path.join(os.environ["ISOLATION_OUT"], f"{os.getpid()}.txt")
+    with open(out, "w") as f:
+        f.write(" ".join([sys.argv[0]] + bad))
+
+
+atexit.register(_report)
+'''
+
+
+def test_tail_driver_scripts_never_import_jax(tmp_path):
+    """scripts/bench_insert_torch.py, bench_tiered_torch.py,
+    bench_sharded_torch.py and bench_api_torch.py imported and run end to
+    end at a tiny size on the CPU (the card's name stubbed) load no jax and
+    no module of the JAX package; nor do the API's two children
+    (``python -m vector_db_tpu_torch.api.embedding_app`` and ``.app``),
+    each of which reports its modules at exit through a sitecustomize on
+    its path."""
+    (tmp_path / "site").mkdir()
+    (tmp_path / "site" / "sitecustomize.py").write_text(CHILD_MODULES)
+    (tmp_path / "out").mkdir()
+    script = textwrap.dedent("""
+        import os
+        import sys
+        import tempfile
+        from pathlib import Path
+
+        import torch
+
+        sys.path.insert(0, "scripts")
+        import bench_api_torch as api
+        import bench_insert_torch as ins
+        import bench_sharded_torch as shard
+        import bench_tiered_torch as tier
+
+        torch.set_num_threads(1)
+        for m in (api, ins, shard, tier):
+            m.card = lambda: "isolation rehearsal"
+        tier.B, tier.WARM, tier.REPS = 8, 0, 1
+        with tempfile.TemporaryDirectory() as tmp:
+            out = [ins.run(256, "cpu", Path(tmp) / "i.json",
+                           batches=(16, 32)),
+                   tier.run(4200, "cpu", Path(tmp) / "t.json", batch=4100,
+                            efs=(50,)),
+                   shard.run(8192, "cpu", Path(tmp) / "s.json", n_hnsw=2048,
+                             step=4096)]
+            os.environ["PYTHONPATH"] = os.pathsep.join(
+                [sys.argv[1], os.getcwd()])
+            os.environ["ISOLATION_OUT"] = sys.argv[2]
+            out.append(api.run(64, "cpu", Path(tmp) / "a.json", n_queries=8,
+                               n_single=2))
+        assert {o["card"] for o in out} == {"isolation rehearsal"}
+        assert "jax" not in sys.modules, sorted(
+            m for m in sys.modules if m.startswith("jax"))
+        jax_pkg = sorted(m for m in sys.modules
+                         if m == "vector_db_tpu"
+                         or m.startswith("vector_db_tpu."))
+        assert not jax_pkg, jax_pkg
+    """)
+    out = subprocess.run([sys.executable, "-c", script,
+                          str(tmp_path / "site"), str(tmp_path / "out")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stderr
+    lines = [json.loads(line) for line in out.stdout.splitlines()]
+    assert [line.get("n_docs", line.get("N")) for line in lines] == [
+        None, 4200, None, 64]
+    reports = sorted(p.read_text().split()
+                     for p in (tmp_path / "out").glob("*.txt"))
+    assert [r[0].rsplit("/", 1)[-1] for r in reports] == [
+        "app.py", "embedding_app.py"], reports
+    assert all(len(r) == 1 for r in reports), reports

@@ -19,6 +19,26 @@ from vector_db_tpu_torch.ops.distance import BIG
 from vector_db_tpu_torch.ops.topk import smallest_stable
 
 
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launches so far in this process, by name (a
+    wrapper adds one where it launches its kernel, never on the CPU's plain
+    version; ``l2_topk`` splits by the table's dtype)."""
+    from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
+    from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
+    from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
+    from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
+    from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
+
+    return {"l2_topk": l2_topk.launches - l2_topk.launches_bf16,
+            "l2_topk_bf16": l2_topk.launches_bf16,
+            "block_min": block_min_scan.launches,
+            "block_topm": block_topm_scan.launches,
+            "adc_probe": adc_probe_scores.launches,
+            "adc_topk": adc_topk.launches,
+            "sorted_topk": sorted_topk.launches}
+
 def check_cuda_args(what: str, **args) -> None:
     """Raise unless every ``name=(tensor, dtype(s), shape)`` is a contiguous
     CUDA tensor of that dtype and shape on one device."""
