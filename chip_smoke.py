@@ -125,9 +125,7 @@ Phase 10's scripts time the classic RP / PQ and the beam rows at phase 5's
 settings, so phase 5 times each of those once; the sharded HNSW of phase 7b
 streams 2 of the service's 10 insert batches and bulk-builds the rest.
 Phase 11's runs put the reference's storage widths through an ingest and a
-restart, so phase 6 no longer times a full-width store, and phase 5 fills
-its reload's storage in one pass (phase 6 puts a million documents through
-save_many).
+restart, so phase 6 no longer times a full-width store.
 
 Phases 3-6 also profile search modes (torch.profiler over 3 calls):
 device busy time, idle share of the wall time, the largest device items.
@@ -1656,16 +1654,14 @@ def check_inserted(torch, idx, x, n_build, n_end=None, sample=None,
 
 def hnsw_persist(torch, idx, x, queries):
     """save_index to a temporary directory, then a reload into a new
-    HNSW(device="cuda") over MMapNodeStorage holding the live rows (its
-    embedding file written in one numpy pass in the storage's row layout,
-    then opened: the reopen's rescan; phase 6 puts a million documents
-    through save_many): the tables and the id map bit-equal, nothing to
-    re-link, the same ids on the B queries (classic). Returns (npz bytes,
-    save s, storage fill s, load s)."""
+    HNSW(device="cuda") over MMapNodeStorage holding the live rows (filled
+    by one save_many call): the tables and the id map bit-equal, nothing
+    to re-link, the same ids on the B queries (classic). Returns (npz
+    bytes, save s, storage fill s, load s)."""
     import tempfile
     from pathlib import Path
 
-    from vector_db_tpu_torch import HNSW
+    from vector_db_tpu_torch import HNSW, Node
     from vector_db_tpu_torch.storage import MMapNodeStorage
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1678,20 +1674,13 @@ def hnsw_persist(torch, idx, x, queries):
         id_map = idx._store.export_id_map()
         live = np.sort(id_map[id_map >= 0])
         t0 = time.perf_counter()
-        rows = np.memmap(Path(tmp) / "emb.npy", mode="w+", shape=(HNSW_N,),
-                         dtype=[("id", np.int64),
-                                ("embedding", np.float32, (HNSW_DIM,))])
-        rows["id"] = -1
-        rows["id"][:live.size] = live
-        rows["embedding"][:live.size] = x[live]
-        rows.flush()
-        del rows
         storage = MMapNodeStorage(Path(tmp) / "emb.npy",
                                   Path(tmp) / "meta.npy", dim=HNSW_DIM,
                                   capacity=HNSW_N, content_chars=16,
                                   metadata_chars=16)
+        storage.save_many([Node(id=int(i), embedding=x[i]) for i in live])
         if storage.size() != live.size:
-            raise AssertionError(f"reopened storage: {storage.size()} rows, "
+            raise AssertionError(f"filled storage: {storage.size()} rows, "
                                  f"not {live.size}")
         fill_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -1728,8 +1717,8 @@ def hnsw_persist(torch, idx, x, queries):
         del again
     idx.index_file = None
     log(f"persistence: save_index {save_s:.2f} s ({nbytes} bytes of npz); "
-        f"MMapNodeStorage over {live.size} rows (its embedding file "
-        f"written in one pass, then reopened) in {fill_s:.1f} s; load "
+        f"MMapNodeStorage over {live.size} rows (one save_many) in "
+        f"{fill_s:.1f} s; load "
         f"(HNSW(index_file=...): "
         f"npz, hydration from storage, recover_unlinked) {load_s:.2f} s; "
         f"tables, id map and levels bit-equal; classic ids equal on {B} "
@@ -4141,10 +4130,12 @@ def p11_time(torch, kernels, name, card, label, q, tab, valid, k, x_sq,
              err) -> None:
     """Record ``name``: l2_topk at these inputs (held already, max abs err
     ``err``), its time, its plain version's and its bound; torch.matmul of
-    the product is logged beside."""
+    the product is logged beside. The bound counts the valid rows only,
+    the rows the answer needs; the padded share is logged beside it."""
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
 
-    n, d = tab.shape
+    rows, d = tab.shape
+    n = int(valid.sum())
     b = q.shape[0]
     rec = kernels[name]
     rec.update(max_abs_err=err,
@@ -4158,10 +4149,11 @@ def p11_time(torch, kernels, name, card, label, q, tab, valid, k, x_sq,
               BF16_TC_FLOPS if bf16 else TF32_TC_FLOPS)
     qm = q.to(tab.dtype)
     mm = cuda_ms(torch, lambda: torch.matmul(qm, tab.T))
-    log(f"phase 11 {label}: l2_topk {tab.dtype} N={n} d={d} B={b} k={k} "
-        f"[{card}]: kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
-        f"ms, torch.matmul of the product {mm:.3f} ms, bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max abs err {err}")
+    log(f"phase 11 {label}: l2_topk {tab.dtype} N={n} valid of {rows} rows "
+        f"({1 - n / rows:.1%} padding) d={d} B={b} k={k} [{card}]: kernel "
+        f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, torch.matmul "
+        f"of the product {mm:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}, valid rows), max abs err {err}")
 
 
 def p11_insert(torch, kernels, card, dev, one):
@@ -4240,17 +4232,19 @@ def p11_sharded(torch, kernels, card, one):
     """bench_sharded_torch at P11_SHARDED_N and P11_SHARDED_HNSW rows over 8
     shards: a search launches l2_topk once a shard; the kernel held at one
     shard's inputs and timed, its record with the searches' launches (the
-    warm-up and the timed one)."""
+    warm-up and the timed one, each counted by the script)."""
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
 
     keep = {}
     res = one("bench_sharded_torch", P11_SHARDED_N,
               "BENCH_SHARDED_TORCH.json", n_hnsw=P11_SHARDED_HNSW, keep=keep)
     shards = sys.modules["bench_sharded_torch"].SHARDS
-    per_search = res["flat_4m"]["search_launches"].get("l2_topk", 0)
-    if res["mesh_devices"] != shards or per_search != shards:
+    searches = [res["flat_4m"][key].get("l2_topk", 0)
+                for key in ("warm_launches", "search_launches")]
+    if res["mesh_devices"] != shards or searches != [shards, shards]:
         raise AssertionError(f"bench_sharded: {res['mesh_devices']} shards, "
-                             f"{per_search} l2_topk launches a search")
+                             f"{searches} l2_topk launches in the warm-up "
+                             "and the timed search")
     flat, q = keep["flat"], keep["flat_q"]
     qd = torch.from_numpy(q).to(flat._emb[0].device)
     tab, valid = flat._emb[0], flat._valid[0]
@@ -4263,7 +4257,7 @@ def p11_sharded(torch, kernels, card, one):
                      scale=terms(qd, x_sq))
     p11_time(torch, kernels, "l2_topk_p11_shard", card,
              "bench_sharded flat shard", qd, tab, valid, k, x_sq, err)
-    kernels["l2_topk_p11_shard"]["launches"] = 2 * per_search
+    kernels["l2_topk_p11_shard"]["launches"] = sum(searches)
     keep.clear()
 
 

@@ -28,9 +28,12 @@ metadata memmap is at the reference's widths. Rows:
 
 Beside them: ``GET /health`` after the ingest (its index size must be the
 document count), the devices ``GET /stats`` names, and for each row the
-kernels the indexing process launched, read from ``/stats`` before and
-after. A request that fails, an assertion, or a child that exits fails the
-run: the last 40 lines of both children's logs go to stderr. Both children
+kernels the indexing process launched, read before and after the row: a
+``sitecustomize`` that the script puts first on the indexing child's
+``PYTHONPATH`` makes the child write its ``launch_counts()`` to a file on
+SIGUSR1 (then runs any other ``sitecustomize`` on that path). A request
+that fails, an assertion, or a child that exits fails the run: the last
+40 lines of both children's logs go to stderr. Both children
 are terminated at the end, also on failure (SIGTERM to this process is
 turned into an exception so that they are). Not carried over: the JAX
 script's CPU default (the index runs on the card unless ``run`` is given
@@ -44,6 +47,7 @@ result and exits 1. Progress goes to stderr.
 
 from __future__ import annotations
 
+import json
 import os
 import signal
 import socket
@@ -68,6 +72,39 @@ WORDS = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta",
          "theta", "iota", "kappa", "lam", "mu"]
 HEALTH_TIMEOUT = 600    # the indexing child allocates the metadata memmap
 LOG_TAIL = 40
+REPORT_TIMEOUT = 60
+
+# The indexing child's sitecustomize: on SIGUSR1 it writes the kernel
+# launches of its process to $KERNEL_LAUNCHES_FILE; then the next
+# sitecustomize on the path, if any, runs as it would have.
+CHILD_HOOK = '''\
+import json
+import os
+import signal
+import sys
+
+
+def _report(*_):
+    from vector_db_tpu_torch.ops.cuda import launch_counts
+
+    path = os.environ["KERNEL_LAUNCHES_FILE"]
+    with open(path + ".part", "w") as f:
+        json.dump(launch_counts(), f)
+    os.replace(path + ".part", path)
+
+
+signal.signal(signal.SIGUSR1, _report)
+_here = os.path.dirname(os.path.abspath(__file__))
+_me, _path = sys.modules.pop("sitecustomize"), sys.path[:]
+sys.path[:] = [p for p in sys.path
+               if os.path.abspath(p or os.curdir) != _here]
+try:
+    import sitecustomize  # noqa: F401
+except ImportError:
+    sys.modules["sitecustomize"] = _me
+finally:
+    sys.path[:] = _path
+'''
 
 
 def free_port() -> int:
@@ -89,6 +126,24 @@ class Children:
             self.procs[name] = subprocess.Popen(
                 [sys.executable, "-m", module], env=env, cwd=ROOT,
                 stdout=out, stderr=subprocess.STDOUT)
+
+    def launches(self) -> dict:
+        """The indexing child's kernel launches so far (SIGUSR1 asks its
+        hook to write them)."""
+        path = self.tmp / "launches.json"
+        path.unlink(missing_ok=True)
+        child = self.procs["indexing"]
+        child.send_signal(signal.SIGUSR1)
+        t0 = time.time()
+        while not path.exists():
+            if child.poll() is not None:
+                raise RuntimeError(f"the indexing service exited with code "
+                                   f"{child.returncode}")
+            if time.time() - t0 > REPORT_TIMEOUT:
+                raise RuntimeError("the indexing service did not report its "
+                                   "kernel launches")
+            time.sleep(0.01)
+        return json.loads(path.read_text())
 
     def check(self) -> None:
         """Raise if a child has exited."""
@@ -152,9 +207,6 @@ def workload(base: str, n_docs: int, n_queries: int, ingest_batch: int,
     ``base``; ``answers`` receives (query, ids) of each single search."""
     import httpx
 
-    def stats(client):
-        return ok(client.get(base + "/stats")).json()
-
     rng = np.random.default_rng(0)
 
     def doc(i):
@@ -163,7 +215,7 @@ def workload(base: str, n_docs: int, n_queries: int, ingest_batch: int,
 
     long = httpx.Timeout(1800, connect=10)
     with httpx.Client(timeout=long) as client:
-        before = stats(client)["kernel_launches"]
+        before = kids.launches()
         t0 = time.perf_counter()
         for s in range(0, n_docs, ingest_batch):
             docs = [doc(i) for i in range(s, min(s + ingest_batch, n_docs))]
@@ -175,7 +227,7 @@ def workload(base: str, n_docs: int, n_queries: int, ingest_batch: int,
                 log(f"ingest {s + len(docs)}/{n_docs} "
                     f"({(s + len(docs)) / el:.0f} docs/s)")
         ingest_s = time.perf_counter() - t0
-        after = stats(client)["kernel_launches"]
+        after = kids.launches()
         results["ingest"] = {"seconds": ingest_s,
                              "docs_per_s": n_docs / ingest_s,
                              "batch": ingest_batch,
@@ -192,7 +244,7 @@ def workload(base: str, n_docs: int, n_queries: int, ingest_batch: int,
 
     lat = []
     with httpx.Client(timeout=600) as client:
-        before = stats(client)["kernel_launches"]
+        before = kids.launches()
         for _ in range(n_single):
             q = {"query": f"doc {rng.integers(n_docs)}: alpha beta",
                  "top_k": 10, "ef": 100}
@@ -201,7 +253,7 @@ def workload(base: str, n_docs: int, n_queries: int, ingest_batch: int,
             lat.append((time.perf_counter() - t0) * 1e3)
             answers.append((q["query"],
                             [h["id"] for h in ok(r).json()["results"]]))
-        after = stats(client)["kernel_launches"]
+        after = kids.launches()
     lat.sort()
     results["search_single"] = {
         "p50_ms": statistics.median(lat),
@@ -219,13 +271,13 @@ def workload(base: str, n_docs: int, n_queries: int, ingest_batch: int,
         ok(client.post(base + "/search/batch", json={
             "queries": queries[:qbatch], "top_k": 10, "ef": 100}))
     with httpx.Client(timeout=600) as client:
-        before = stats(client)["kernel_launches"]
+        before = kids.launches()
         t0 = time.perf_counter()
         for s in range(0, n_queries, qbatch):
             ok(client.post(base + "/search/batch", json={
                 "queries": queries[s:s + qbatch], "top_k": 10, "ef": 100}))
         el = time.perf_counter() - t0
-        after = stats(client)["kernel_launches"]
+        after = kids.launches()
     results["search_batch"] = {"qps": n_queries / el, "batch": qbatch,
                                "n_queries": n_queries,
                                "launches": launches_between(before, after)}
@@ -233,7 +285,7 @@ def workload(base: str, n_docs: int, n_queries: int, ingest_batch: int,
     kids.check()
 
     with httpx.Client(timeout=600) as client:
-        before = stats(client)["kernel_launches"]
+        before = kids.launches()
         t0 = time.perf_counter()
         r = ok(client.post(base + "/search", json={
             "query": "doc 5: alpha", "top_k": 5,
@@ -242,10 +294,10 @@ def workload(base: str, n_docs: int, n_queries: int, ingest_batch: int,
         hits = r.json()["results"]
         if not hits or any(h["metadata"]["topic"] != "alpha" for h in hits):
             raise AssertionError(f"filtered search hits: {hits}")
-        after = stats(client)
-    results["search_filtered_launches"] = launches_between(
-        before, after["kernel_launches"])
-    results["stats_devices"] = after["device"]["devices"]
+        after = kids.launches()
+        stats = ok(client.get(base + "/stats")).json()
+    results["search_filtered_launches"] = launches_between(before, after)
+    results["stats_devices"] = stats["device"]["devices"]
     kids.check()
 
 
@@ -287,6 +339,9 @@ vector_db: {{file_path: {tmp}/data/vdb, dimension: {DIM}, capacity: {n_docs + 10
             port, emb_port = port or free_port(), emb_port or free_port()
             env = dict(os.environ, CONFIG_PATH=str(cfg),
                        PYTHONUNBUFFERED="1")
+            (tmp / "hook").mkdir()
+            (tmp / "hook" / "sitecustomize.py").write_text(CHILD_HOOK)
+            path = [str(tmp / "hook"), env.get("PYTHONPATH", "")]
             kids = Children(tmp)
             try:
                 kids.start("embedding", "vector_db_tpu_torch.api.embedding_app",
@@ -295,7 +350,9 @@ vector_db: {{file_path: {tmp}/data/vdb, dimension: {DIM}, capacity: {n_docs + 10
                                  HEALTH_TIMEOUT)
                 kids.start("indexing", "vector_db_tpu_torch.api.app", dict(
                     env, PORT=str(port), USE_EMBEDDING_SERVICE="true",
-                    EMBEDDING_SERVICE_URL=f"http://127.0.0.1:{emb_port}"))
+                    EMBEDDING_SERVICE_URL=f"http://127.0.0.1:{emb_port}",
+                    PYTHONPATH=os.pathsep.join(p for p in path if p),
+                    KERNEL_LAUNCHES_FILE=str(tmp / "launches.json")))
                 t0 = time.perf_counter()
                 kids.wait_health(f"http://127.0.0.1:{port}", HEALTH_TIMEOUT)
                 results["indexing_start_s"] = time.perf_counter() - t0

@@ -13,7 +13,8 @@ and the number of distinct devices.
   ingested in steps of 500,000 (each id routed on the host); one warm-up
   search, then one timed search of 64 queries (``l2_topk`` on each shard,
   the merge on the first device), held against a numpy brute force over
-  the same rows (independent of the code under test).
+  the same rows (independent of the code under test). The kernels of
+  both searches are counted, each on its own.
 - ``ShardedHNSW(M=12, ef_construction=80)`` at 262,144 x 64: the bulk
   build (``knn_exact`` on ``l2_topk`` per shard), recall@10 at ef 120
   against a numpy exact top-10 of 32 queries, one timed search, a
@@ -23,9 +24,10 @@ and the number of distinct devices.
   the masked numpy truth).
 
 The JAX file's keys stay, ``search_qps_cpu`` and ``build_vps_cpu``
-included: on the port they hold the card's figures (host clock around a
-call that returns host arrays). Each section also carries the kernels it
-launched. Not carried over: the XLA flag that makes 8 virtual CPU devices.
+included: on the port they hold the card's figures. Every time is the host
+clock around a call and a sync of the mesh's devices, so a call that only
+queues device work (``delete_batch``, the ingest) is timed to the end of
+that work. Each section also carries the kernels it launched. Not carried over: the XLA flag that makes 8 virtual CPU devices.
 
 Writes BENCH_SHARDED_TORCH.json with the card's name and power limit, and
 prints it as one JSON line. Runs on the card only: without one it prints no
@@ -85,6 +87,13 @@ def brute_force(x: np.ndarray, q: np.ndarray, k: int, step: int
     return best_i
 
 
+def _sync(mesh) -> None:
+    """Wait for the work queued on every CUDA device of ``mesh``."""
+    for dev in set(mesh.devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 def flat_section(mesh, rng, n: int, step: int, keep) -> dict:
     log(f"flat: generating {n}x{DIM}...")
     x = rng.standard_normal((n, DIM)).astype(np.float32)
@@ -94,13 +103,17 @@ def flat_section(mesh, rng, n: int, step: int, keep) -> dict:
     t0 = time.perf_counter()
     for s in range(0, n, step):
         flat.insert(range(s, min(n, s + step)), x[s:s + step])
+    _sync(mesh)
     ingest_s = time.perf_counter() - t0
     log(f"flat ingest: {ingest_s:.1f}s ({n / ingest_s:.0f} vec/s)")
 
+    before = launch_counts()
     flat.search_batch(q, k=K)      # warm-up
+    warm_launched = launches_since(before)
     before = launch_counts()
     t0 = time.perf_counter()
     _, ids1 = flat.search_batch(q * (1 + 1e-6), k=K)
+    _sync(mesh)
     search_s = time.perf_counter() - t0
     launched = launches_since(before)
     log(f"flat sharded search: {B / search_s:.1f} qps")
@@ -112,7 +125,7 @@ def flat_section(mesh, rng, n: int, step: int, keep) -> dict:
     return {"n": n, "dim": DIM, "ingest_s": ingest_s,
             "ingest_vps": n / ingest_s, "search_qps_cpu": B / search_s,
             "search_s": search_s, "recall_vs_bruteforce": rec,
-            "search_launches": launched}
+            "warm_launches": warm_launched, "search_launches": launched}
 
 
 def hnsw_section(mesh, rng, n2: int) -> dict:
@@ -124,6 +137,7 @@ def hnsw_section(mesh, rng, n2: int) -> dict:
     before = launch_counts()
     t0 = time.perf_counter()
     idx.bulk_build(range(n2), x2)
+    _sync(mesh)
     build_s = time.perf_counter() - t0
     build_launches = launches_since(before)
     log(f"hnsw bulk_build: {build_s:.1f}s ({n2 / build_s:.0f} vec/s)")
@@ -135,6 +149,7 @@ def hnsw_section(mesh, rng, n2: int) -> dict:
     rec = _recall(ids2, gt2, 10)
     t0 = time.perf_counter()
     idx.search_batch(q2 * (1 + 1e-6), k=10, ef=120)
+    _sync(mesh)
     qps = Q_HNSW / (time.perf_counter() - t0)
     search_launches = launches_since(before)
     log(f"hnsw sharded search: recall@10={rec:.3f} {qps:.1f} qps")
@@ -143,6 +158,7 @@ def hnsw_section(mesh, rng, n2: int) -> dict:
     before = launch_counts()
     t0 = time.perf_counter()
     idx.insert(range(n2, n2 + N_EXTRA), extra)
+    _sync(mesh)
     ins_s = time.perf_counter() - t0
     insert_launches = launches_since(before)
     _, eids = idx.search_batch(extra[:4], k=1, ef=80)
@@ -153,6 +169,7 @@ def hnsw_section(mesh, rng, n2: int) -> dict:
     victims = list(range(0, 4096, 16))
     t0 = time.perf_counter()
     idx.delete_batch(victims)
+    _sync(mesh)
     del_s = time.perf_counter() - t0
     _, ids3 = idx.search_batch(x2[victims[:8]], k=5, ef=80)
     if set(victims) & set(ids3.ravel().tolist()):

@@ -264,13 +264,6 @@ def test_stats_endpoint(config_path, tmp_path):
                             "backend"}
         assert dev["backend"] == ("cuda" if torch.cuda.is_available()
                                   else "cpu")
-        # each kernel's launches in this process (none: the CPU runs the
-        # plain versions)
-        assert set(body["kernel_launches"]) == {
-            "l2_topk", "l2_topk_bf16", "block_min", "block_topm",
-            "adc_probe", "adc_topk", "sorted_topk"}
-        if not torch.cuda.is_available():
-            assert not any(body["kernel_launches"].values())
         await client.close()
 
     run(go())

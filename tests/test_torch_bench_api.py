@@ -19,7 +19,8 @@ chip_smoke.py holds them); ``/health`` at the document count; the filtered
 search's hits all of its topic (the port's run raises otherwise); both
 children ended; the recall@10 of the first 16 single searches against the
 exact top-10 within 0.02 of the JAX app's (one id in 160 is 0.00625); the
-indexing service's ``/stats`` carries each kernel's launches; ``main``
+indexing child reports each row's kernel launches through the script's
+hook (none on the CPU); ``main``
 without a card exits 1 with nothing on stdout and leaves the committed
 file as it was.
 """

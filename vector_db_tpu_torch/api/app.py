@@ -147,12 +147,8 @@ async def stats_endpoint(request: web.Request) -> web.Response:
     device info)."""
     _, storage_service, indexing_service = _services(request)
     from vector_db_tpu_torch.embedding.device import get_device_info
-    from vector_db_tpu_torch.ops.cuda import launch_counts
 
-    # the kernels this process has launched: a client of the two-process
-    # deployment reads which kernels served its requests
-    out: Dict[str, Any] = {"device": get_device_info(),
-                           "kernel_launches": launch_counts()}
+    out: Dict[str, Any] = {"device": get_device_info()}
     if indexing_service is not None:
         out["index"] = {
             "type": indexing_service.index_type,
