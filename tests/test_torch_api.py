@@ -202,6 +202,13 @@ def test_batch_endpoints(config_path, tmp_path):
         m = await r.json()
         assert m["POST /embed/batch-docs"]["requests"] == 1
         assert m["POST /search/batch"]["errors"] == 0
+        prog = m["program"]
+        assert set(prog) == {"counters", "launches", "spans"}
+        # the one batch search above took the classic HNSW route
+        assert prog["counters"]["search.requests.hnsw"] >= 1
+        assert prog["counters"]["search.queries.hnsw"] >= 2
+        assert prog["counters"]["service.lock_wait_ns"] >= 0
+        assert "adc_topk" in prog["launches"]
         await client.close()
 
     run(go())

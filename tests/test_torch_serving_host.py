@@ -28,7 +28,7 @@ from vector_db_tpu_torch.embedding.device import (
 from vector_db_tpu_torch.embedding.fake import HashingEmbedder
 from vector_db_tpu_torch.engine import MemoryMappingService
 from vector_db_tpu_torch.native.metadata import MetadataIndex
-from vector_db_tpu_torch.observability import Timer, annotate, trace
+from vector_db_tpu_torch.observability import recording, span, trace
 from vector_db_tpu_torch.services.storage_service import StorageService
 from vector_db_tpu_torch.storage.disk import DiskNodeStorage
 from vector_db_tpu_torch.types import Node
@@ -291,28 +291,17 @@ def test_storage_service_filter_matches_scan_and_survives_reopen(tmp_path,
 
 # ---- observability (test_observability.py) ----
 
-def test_timer_spans():
-    t = Timer()
-    with t.span("a"):
-        pass
-    with t.span("a"):
-        pass
-    with t.span("b"):
-        pass
-    snap = t.snapshot()
-    assert snap["a"]["count"] == 2 and snap["b"]["count"] == 1
-    assert snap["a"]["total_s"] >= 0 and snap["a"]["avg_ms"] >= 0
-    t.reset()
-    assert t.snapshot() == {}
-
-
 def test_trace_writes_a_profile_with_the_span(tmp_path):
     with trace(str(tmp_path / "run")):
-        with annotate("test-span"):
+        with span("test-span"):
             (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
+    with recording():   # spans on without a profiler: not in the file
+        with span("unprofiled-span"):
+            pass
     files = list((tmp_path / "run").glob("trace_*.json"))
     assert len(files) == 1 and files[0].stat().st_size > 0
-    assert "test-span" in files[0].read_text()
+    text = files[0].read_text()
+    assert "test-span" in text and "unprofiled-span" not in text
 
 
 # ---- MemoryMappingService, DiskNodeStorage (test_engine_and_disk.py) ----

@@ -18,6 +18,8 @@ import threading
 import time
 from pathlib import Path
 
+from vector_db_tpu_torch.observability import count
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -123,6 +125,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
+            count("kernel.builds")
             so = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(so, name)

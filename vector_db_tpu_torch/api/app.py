@@ -15,8 +15,10 @@ Differences:
   environment); routes, schemas, and env contract are unchanged;
 - batch endpoints ``POST /embed/batch-docs`` and ``POST /search/batch``
   expose the engine's one-device-program batch paths;
-- ``GET /metrics`` reports per-endpoint request counts and latency — the
-  observability the reference lacks (SURVEY.md §5: no tracing/metrics).
+- ``GET /metrics`` reports per-endpoint request counts and latency, and
+  under ``program`` the engine's own counters, kernel launches and span
+  totals (``observability.snapshot()``) — the observability the reference
+  lacks (SURVEY.md §5: no tracing/metrics).
 
 The index's device comes from the config's ``device`` through
 ``IndexingService``; ``GET /stats`` reports torch's view of the devices.
@@ -33,6 +35,7 @@ import numpy as np
 from aiohttp import web
 from pydantic import ValidationError
 
+from vector_db_tpu_torch import observability
 from vector_db_tpu_torch.api.models import (
     BatchInsertRequest,
     BatchQueryRequest,
@@ -138,7 +141,8 @@ async def health(request: web.Request) -> web.Response:
 
 
 async def metrics_endpoint(request: web.Request) -> web.Response:
-    return web.json_response(request.app["metrics"].snapshot())
+    return web.json_response({**request.app["metrics"].snapshot(),
+                              "program": observability.snapshot()})
 
 
 async def stats_endpoint(request: web.Request) -> web.Response:

@@ -48,6 +48,7 @@ from vector_db_tpu_torch.index import hnsw_kernels as K
 from vector_db_tpu_torch.index import wide_beam as WB
 from vector_db_tpu_torch.index.flat import pca_projection
 from vector_db_tpu_torch.index.pq import PQCodec, _encode_scan
+from vector_db_tpu_torch.observability import count, span
 from vector_db_tpu_torch.ops.distance import squared_norms
 from vector_db_tpu_torch.ops.exact import (
     approx_search_tiled,
@@ -799,6 +800,7 @@ class HNSW:
         """(aug mirror, seed slots), rebuilt after any mutation; the inline
         tables with them when enabled."""
         if self._wb is None or self._wb[0] != self._version:
+            count("wide.mirror_builds")
             self._wb = None     # free the old tables before the new build
             aug = WB.build_aug_table(self._store.emb, self._has_emb,
                                      self._wb_proj)
@@ -821,6 +823,7 @@ class HNSW:
         the current codes, rebuilt after any mutation."""
         seeds = self._wide_tables()[1]
         if self._wb_pq is None or self._wb_pq[0] != self._version:
+            count("wide.mirror_builds")
             self._wb_pq = (self._version, WB.build_aug_table_pq(
                 self._pq_table(), self._pq.codebooks, self._pq.rotation,
                 self._has_emb, self._wb_proj))
@@ -912,20 +915,25 @@ class HNSW:
         if not steps:
             steps = 10
         rerank_k = rerank_k or min(ef, max(4 * k, 64))
-        aug, seeds, inline_tabs = self._wide_scoring(score)
-        q_dev = torch.from_numpy(queries).to(self.device)
-        qa = WB.aug_queries(q_dev, self._wb_proj, aug.shape[1])
         nbr0 = self.graph.neighbors[:, : 2 * self.M]
         seg_fs = [f for f, _ in schedule] if schedule else [frontier]
-        res_mask = (torch.from_numpy(self._store.filter_mask(filter_ids)).to(
-            self.device) if filter_ids is not None else None)
+        chunks = WB.score_chunks(queries.shape[0], seg_fs, nbr0.shape[1])
+        with span("vdb.wide.prep", device=self.device, B=queries.shape[0],
+                  P=ef, F=frontier, T=steps, R=min(max(rerank_k, k), ef),
+                  score_chunks=chunks, seen_mask=seen_mask,
+                  merge=("sorted_topk" if merge_kernel and ef <= WB.MAX_TOPK
+                         else "plain")):
+            aug, seeds, inline_tabs = self._wide_scoring(score)
+            q_dev = torch.from_numpy(queries).to(self.device)
+            qa = WB.aug_queries(q_dev, self._wb_proj, aug.shape[1])
+            res_mask = (torch.from_numpy(
+                self._store.filter_mask(filter_ids)).to(self.device)
+                if filter_ids is not None else None)
         d_sq, slots = WB.wide_search(
             nbr0, aug, self._emb, self._has_emb, seeds, q_dev, qa,
             ef=ef, F=frontier, T=steps, k=k, rerank_k=rerank_k,
             dedup_window=dedup_window, seen_mask=seen_mask,
-            inline_tabs=inline_tabs,
-            score_chunks=WB.score_chunks(queries.shape[0], seg_fs,
-                                         nbr0.shape[1]),
+            inline_tabs=inline_tabs, score_chunks=chunks,
             merge_kernel=merge_kernel,
             schedule=(tuple(tuple(map(int, s)) for s in schedule)
                       if schedule else None),
@@ -934,11 +942,14 @@ class HNSW:
 
     def _to_host(self, d_sq, slots, b: int, k: int):
         """(L2 dists f32[b, k], ids int64[b, k]), (inf, -1) padded."""
-        d_sq = d_sq.cpu().numpy()[:b, :k]
-        slots = slots.cpu().numpy()[:b, :k]
-        ids = np.where(slots >= 0, self._id_of_slot[np.maximum(slots, 0)], -1)
-        dists = np.where(slots >= 0, np.sqrt(np.maximum(d_sq, 0.0)), np.inf)
-        return dists.astype(np.float32), ids
+        with span("vdb.to_host"):
+            d_sq = d_sq.cpu().numpy()[:b, :k]
+            slots = slots.cpu().numpy()[:b, :k]
+            ids = np.where(slots >= 0,
+                           self._id_of_slot[np.maximum(slots, 0)], -1)
+            dists = np.where(slots >= 0, np.sqrt(np.maximum(d_sq, 0.0)),
+                             np.inf)
+            return dists.astype(np.float32), ids
 
     def _emb_traverse(self) -> torch.Tensor:
         """Table for beam traversal: the f32 source, or the bf16 mirror."""

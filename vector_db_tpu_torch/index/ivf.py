@@ -56,6 +56,7 @@ from vector_db_tpu_torch.index.pq import (
     _encode_residual_scan,
     _encode_scan,
 )
+from vector_db_tpu_torch.observability import count, span
 from vector_db_tpu_torch.ops.cuda import by_passes
 from vector_db_tpu_torch.ops.cuda.adc_probe import (
     adc_probe_plain,
@@ -375,9 +376,22 @@ def _ivf_pq_scan_cells(
     (the JAX package keeps ``min(fetch, tile)`` a tile, which is the same
     set), mapped back through the slot table, then the exact rerank.
     ``fetch`` past the kernel's lists (2048) takes passes of it on a CUDA
-    tensor, the plain version on a CPU one (``adc_topk_long``'s rule)."""
-    k_cells, max_l, m = cell_codes.shape
-    fetch = max(top_k, min(fetch, k_cells * max_l))
+    tensor, the plain version on a CPU one (``adc_topk_long``'s rule).
+    Its two halves: :func:`_ivf_pq_scan_operands`, :func:`_ivf_pq_scan`."""
+    ops = _ivf_pq_scan_operands(centroids, cell_slots, cell_codes, cell_s,
+                                codebooks, has_emb, queries, queries_rot,
+                                residual)
+    return _ivf_pq_scan(ops, emb, queries, top_k, fetch, rerank, dedup)
+
+
+def _ivf_pq_scan_operands(centroids, cell_slots, cell_codes, cell_s,
+                          codebooks, has_emb, queries, queries_rot,
+                          residual: bool):
+    """The full scan's ``adc_topk`` operands (arguments as
+    :func:`_ivf_pq_scan_cells`): (LUT f32[B, m, ksub], codes uint8[k * L,
+    m], validity bool[k * L], slots int32[k * L], the kernel's row and group
+    terms)."""
+    _, max_l, m = cell_codes.shape
     lut = _adc_lut(queries_rot, codebooks)                  # [B, m, ksub]
     corr = None
     if residual:
@@ -385,21 +399,35 @@ def _ivf_pq_scan_cells(
         corr = cd - (queries_rot * queries_rot).sum(-1)[:, None]   # [B, k]
     slots = cell_slots.reshape(-1)
     valid = (slots >= 0) & has_emb[slots.clamp_min(0).long()]
-    codes = cell_codes.reshape(-1, m)
     kw = dict(row_bias=cell_s.reshape(-1) if residual else None,
               group_bias=corr, group=max_l)
-    if fetch <= ADC_MAX_K:
-        fd, pos = adc_topk(lut, codes, valid, fetch, **kw)
-    elif lut.device.type == "cpu":
-        fd, pos = adc_topk_plain(lut, codes, valid, fetch, **kw)
-    else:
-        fd, pos = by_passes(lambda after: adc_topk(
-            lut, codes, valid, ADC_MAX_K, after=after, **kw), fetch,
-            ADC_MAX_K)
-    fi = torch.where(pos >= 0, slots[pos.clamp_min(0).long()], -1)
-    if not rerank:
-        return fd[:, :top_k], fi[:, :top_k]
-    return _rerank(queries, emb, fi, top_k, dedup)
+    return lut, cell_codes.reshape(-1, m), valid, slots, kw
+
+
+def _ivf_pq_scan(operands, emb, queries, top_k: int, fetch: int,
+                 rerank: bool, dedup: bool, live: Optional[int] = None):
+    """``adc_topk`` over the operands of :func:`_ivf_pq_scan_operands`,
+    then the slot map and the exact rerank. ``live``: the index's live rows,
+    for the ``vdb.adc_topk`` span's padding (slots over live rows)."""
+    lut, codes, valid, slots, kw = operands
+    fetch = max(top_k, min(fetch, slots.shape[0]))
+    one = fetch <= ADC_MAX_K or lut.device.type == "cpu"
+    with span("vdb.adc_topk", device=lut.device, slots=slots.shape[0],
+              live=live, fetch=fetch,
+              passes=1 if one else -(-fetch // ADC_MAX_K)):
+        if fetch <= ADC_MAX_K:
+            fd, pos = adc_topk(lut, codes, valid, fetch, **kw)
+        elif one:
+            fd, pos = adc_topk_plain(lut, codes, valid, fetch, **kw)
+        else:
+            fd, pos = by_passes(lambda after: adc_topk(
+                lut, codes, valid, ADC_MAX_K, after=after, **kw), fetch,
+                ADC_MAX_K)
+    with span("vdb.ivf.rerank", device=lut.device):
+        fi = torch.where(pos >= 0, slots[pos.clamp_min(0).long()], -1)
+        if not rerank:
+            return fd[:, :top_k], fi[:, :top_k]
+        return _rerank(queries, emb, fi, top_k, dedup)
 
 
 def _rp_flat_search(
@@ -563,6 +591,7 @@ class IvfIndex:
         return table
 
     def _rebuild_device_tables(self) -> None:
+        count("ivf.table_builds")
         table = self._slot_table()
         self._lists_dev = torch.from_numpy(table).to(self.device)
         codes_np = self._ensure_codes_capacity()
@@ -1076,29 +1105,32 @@ class IvfIndex:
         formulation (module docstring)."""
         if self.centroids is None:
             raise ValueError("Index must be built before searching")
-        q = torch.from_numpy(
-            np.ascontiguousarray(queries, np.float32)).to(self.device)
-        fmask = None
-        if filter_ids is not None:
-            fmask = torch.from_numpy(
-                self._store.filter_mask(filter_ids)).to(self.device)
+        full_scan = pq and not rp and int(n_probe) >= self.k
+        if full_scan and self._pq is None:
+            raise ValueError("call enable_pq() first")
+        with span("vdb.ivf.prep", device=self.device):
+            q = torch.from_numpy(
+                np.ascontiguousarray(queries, np.float32)).to(self.device)
+            fmask = None
+            if filter_ids is not None:
+                fmask = torch.from_numpy(
+                    self._store.filter_mask(filter_ids)).to(self.device)
+            has = self._has_emb if fmask is None else self._has_emb & fmask
+            if full_scan:
+                operands = _ivf_pq_scan_operands(
+                    self._centroids_dev, *self._device_cells(),
+                    self._pq.codebooks, has, q,
+                    self._pq.rotate_queries(queries), self._pq_residual)
         if fetch is None:
             fetch = max(4 * int(top_k), 100)
         spilled = self._spill > 1
-        has = self._has_emb if fmask is None else self._has_emb & fmask
         if rp:
             d_sq, slots = self._search_rp(q, has, int(n_probe), int(top_k),
                                           int(fetch), rerank, spilled)
-        elif pq and int(n_probe) >= self.k:
-            if self._pq is None:
-                raise ValueError("call enable_pq() first")
-            cell_slots, cell_codes, cell_s = self._device_cells()
-            d_sq, slots = _ivf_pq_scan_cells(
-                self._centroids_dev, cell_slots, cell_codes, cell_s,
-                self._pq.codebooks, self._emb, has, q,
-                self._pq.rotate_queries(queries), top_k=int(top_k),
-                fetch=int(fetch), rerank=rerank,
-                residual=self._pq_residual, dedup=spilled)
+        elif full_scan:
+            d_sq, slots = _ivf_pq_scan(
+                operands, self._emb, q, int(top_k), int(fetch), rerank,
+                spilled, live=self._store.size)
         elif pq:
             if self._pq is None:
                 raise ValueError("call enable_pq() first")
@@ -1126,11 +1158,13 @@ class IvfIndex:
                 self._has_emb, q, fmask, n_probe=int(n_probe),
                 top_k=int(top_k), dedup=spilled,
             )
-        d_sq = d_sq.cpu().numpy()
-        slots = slots.cpu().numpy()
-        ids = self._store.ids_of(slots)
-        dists = np.where(slots >= 0, np.sqrt(np.maximum(d_sq, 0.0)), np.inf)
-        return dists.astype(np.float32), ids
+        with span("vdb.to_host"):
+            d_sq = d_sq.cpu().numpy()
+            slots = slots.cpu().numpy()
+            ids = self._store.ids_of(slots)
+            dists = np.where(slots >= 0, np.sqrt(np.maximum(d_sq, 0.0)),
+                             np.inf)
+            return dists.astype(np.float32), ids
 
     def _search_rp(self, q, has, n_probe, top_k, fetch, rerank, spilled):
         """The three RP routes, chosen as the JAX package chooses: the flat

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from vector_db_tpu_torch.device import require_f32_matmul, resolve_device
+from vector_db_tpu_torch.observability import count
 from vector_db_tpu_torch.ops.cuda.adc_scan import (
     adc_topk_long,
     adc_topk_plain,
@@ -204,6 +205,7 @@ class PQCodec:
             raise ValueError(
                 f"Need at least {self.k} vectors for {self.k} centroids"
             )
+        count("pq.trainings")
         x = embeddings.astype(np.float32)
         if opq_iters > 0:
             xs = x

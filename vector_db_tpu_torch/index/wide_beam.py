@@ -46,6 +46,7 @@ import torch
 
 from vector_db_tpu_torch.device import require_f32_matmul
 from vector_db_tpu_torch.index.pq import _decode
+from vector_db_tpu_torch.observability import span
 from vector_db_tpu_torch.ops.cuda.sorted_topk import (
     MAX_TOPK,
     sorted_topk,
@@ -306,101 +307,109 @@ def wide_search(
     dev = queries.device
     P = ef
     R = min(max(rerank_k, k), P)
-    qa = queries_aug.to(torch.bfloat16).float()
-    big16 = torch.tensor(BIG, dtype=torch.bfloat16, device=dev)
 
     # ---- seed the pool: score the fixed seed set once ----
-    seed_b = seed_slots[None, :].expand(b, seed_slots.shape[0])
-    d_seed = torch.where(seed_b >= 0, _aug_scores(aug, seed_b, qa), BIG)
-    if d_seed.shape[1] < P:
-        s_pad = P - d_seed.shape[1]
-        d_seed = torch.cat([d_seed, d_seed.new_full((b, s_pad), BIG)], 1)
-        seed_b = torch.cat([seed_b, seed_b.new_full((b, s_pad), -1)], 1)
-    pool_d, pos = torch.topk(d_seed, P, dim=1, largest=False, sorted=True)
-    pool_s0 = torch.where(pool_d < BIG_THRESH, torch.gather(seed_b, 1, pos),
-                          -1)
-    # pool keys in bf16 (selection only; the rerank is exact f32); (slot,
-    # expanded) packed into one int32 as slot * 2 | e, slot -1 packs to -2
-    pool_d = pool_d.to(torch.bfloat16)
-    pool_se = pool_s0 * 2
-    res_d = res_s = None
-    if inline_tabs is not None:
-        q_i8, q_scale = _inline_queries(queries_aug, inline_tabs[0].shape[-1])
-    if res_mask is not None:
-        ok_seed = (seed_b >= 0) & res_mask[seed_b.clamp_min(0).long()]
-        res_d, rpos = torch.topk(torch.where(ok_seed, d_seed, BIG), R, dim=1,
-                                 largest=False, sorted=True)
-        res_s = torch.where(res_d < BIG_THRESH,
-                            torch.gather(seed_b, 1, rpos), -1)
+    with span("vdb.wide.seed", device=dev):
+        qa = queries_aug.to(torch.bfloat16).float()
+        big16 = torch.tensor(BIG, dtype=torch.bfloat16, device=dev)
+        seed_b = seed_slots[None, :].expand(b, seed_slots.shape[0])
+        d_seed = torch.where(seed_b >= 0, _aug_scores(aug, seed_b, qa), BIG)
+        if d_seed.shape[1] < P:
+            s_pad = P - d_seed.shape[1]
+            d_seed = torch.cat([d_seed, d_seed.new_full((b, s_pad), BIG)], 1)
+            seed_b = torch.cat([seed_b, seed_b.new_full((b, s_pad), -1)], 1)
+        pool_d, pos = torch.topk(d_seed, P, dim=1, largest=False,
+                                 sorted=True)
+        pool_s0 = torch.where(pool_d < BIG_THRESH,
+                              torch.gather(seed_b, 1, pos), -1)
+        # pool keys in bf16 (selection only; the rerank is exact f32);
+        # (slot, expanded) packed into one int32 as slot * 2 | e, slot -1
+        # packs to -2
+        pool_d = pool_d.to(torch.bfloat16)
+        pool_se = pool_s0 * 2
+        res_d = res_s = None
+        if inline_tabs is not None:
+            q_i8, q_scale = _inline_queries(queries_aug,
+                                            inline_tabs[0].shape[-1])
+        if res_mask is not None:
+            ok_seed = (seed_b >= 0) & res_mask[seed_b.clamp_min(0).long()]
+            res_d, rpos = torch.topk(torch.where(ok_seed, d_seed, BIG), R,
+                                     dim=1, largest=False, sorted=True)
+            res_s = torch.where(res_d < BIG_THRESH,
+                                torch.gather(seed_b, 1, rpos), -1)
 
     def step(f, pool_d, pool_se, res_d, res_s):
-        pool_sid = pool_se >> 1
-        pool_e = (pool_se & 1) == 1
-        # ---- pop the F best unexpanded entries ----
-        unexp = torch.where(pool_e | (pool_sid < 0), BIG, pool_d.float())
-        fd, fpos = torch.topk(unexp, f, dim=1, largest=False, sorted=True)
-        frontier = torch.gather(pool_sid, 1, fpos)
-        fvalid = (fd < BIG_THRESH) & (frontier >= 0)
-        frontier = torch.where(fvalid, frontier, -1)
-        # mark EVERY pool copy of a popped slot expanded
-        hit = _member(pool_sid, frontier) & (pool_sid >= 0)
-        pool_se = pool_se | hit.int()
+        with span("vdb.wide.score", device=dev):
+            pool_sid = pool_se >> 1
+            pool_e = (pool_se & 1) == 1
+            # ---- pop the F best unexpanded entries ----
+            unexp = torch.where(pool_e | (pool_sid < 0), BIG, pool_d.float())
+            fd, fpos = torch.topk(unexp, f, dim=1, largest=False, sorted=True)
+            frontier = torch.gather(pool_sid, 1, fpos)
+            fvalid = (fd < BIG_THRESH) & (frontier >= 0)
+            frontier = torch.where(fvalid, frontier, -1)
+            # mark EVERY pool copy of a popped slot expanded
+            hit = _member(pool_sid, frontier) & (pool_sid >= 0)
+            pool_se = pool_se | hit.int()
 
-        # ---- expand: gather adjacency + score candidates ----
-        cand = neighbors0[frontier.clamp_min(0).long()]       # [B, F, W]
-        cand = torch.where(fvalid[:, :, None], cand, -1).reshape(b, -1)
-        if inline_tabs is not None:
-            d_new = _inline_scores(inline_tabs, frontier, q_i8, q_scale)
-        else:
-            d_new = _aug_scores(aug, cand, qa, score_chunks)
-        if res_mask is not None:
-            # result-pool merge BEFORE the seen mask: a matching node first
-            # scored this step enters results even if it is already pooled
-            ok_res = (cand >= 0) & res_mask[cand.clamp_min(0).long()]
-            res_d, rpos = torch.topk(
-                torch.cat([res_d, torch.where(ok_res, d_new, BIG)], 1), R,
-                dim=1, largest=False, sorted=True)
-            res_s = torch.gather(torch.cat([res_s, cand], 1), 1, rpos)
-            res_s = torch.where(res_d < BIG_THRESH, res_s, -1)
-            # window-dedup the result pool: copies of one node carry
-            # bit-identical scores and land adjacent
-            dupr = torch.zeros_like(res_s, dtype=torch.bool)
-            for w in range(1, min(max(dedup_window, 1), 8, R - 1) + 1):
-                dupr |= res_s == _shift(res_s, w, -3)
-            res_d = torch.where(dupr, BIG, res_d)
-            res_s = torch.where(dupr, -1, res_s)
+            # ---- expand: gather adjacency + score candidates ----
+            cand = neighbors0[frontier.clamp_min(0).long()]       # [B, F, W]
+            cand = torch.where(fvalid[:, :, None], cand, -1).reshape(b, -1)
+            if inline_tabs is not None:
+                d_new = _inline_scores(inline_tabs, frontier, q_i8, q_scale)
+            else:
+                d_new = _aug_scores(aug, cand, qa, score_chunks)
+        with span("vdb.wide.merge", device=dev):
+            if res_mask is not None:
+                # result-pool merge BEFORE the seen mask: a matching node
+                # first scored this step enters results even if it is
+                # already pooled
+                ok_res = (cand >= 0) & res_mask[cand.clamp_min(0).long()]
+                res_d, rpos = torch.topk(
+                    torch.cat([res_d, torch.where(ok_res, d_new, BIG)], 1),
+                    R, dim=1, largest=False, sorted=True)
+                res_s = torch.gather(torch.cat([res_s, cand], 1), 1, rpos)
+                res_s = torch.where(res_d < BIG_THRESH, res_s, -1)
+                # window-dedup the result pool: copies of one node carry
+                # bit-identical scores and land adjacent
+                dupr = torch.zeros_like(res_s, dtype=torch.bool)
+                for w in range(1, min(max(dedup_window, 1), 8, R - 1) + 1):
+                    dupr |= res_s == _shift(res_s, w, -3)
+                res_d = torch.where(dupr, BIG, res_d)
+                res_s = torch.where(dupr, -1, res_s)
 
-        ok_new = cand >= 0
-        if seen_mask:
-            ok_new &= ~_member(cand, pool_sid)
-        d_new = torch.where(ok_new, d_new, BIG)
+            ok_new = cand >= 0
+            if seen_mask:
+                ok_new &= ~_member(cand, pool_sid)
+            d_new = torch.where(ok_new, d_new, BIG)
 
-        # ---- merge: exact top-P of pool ∪ new ----
-        cat_d = torch.cat([pool_d, d_new.to(torch.bfloat16)], 1)
-        cat_se = torch.cat([pool_se, cand * 2], 1)
-        if merge_kernel and P <= MAX_TOPK:
-            pool_d, pool_se = sorted_topk(cat_d, cat_se, P,
-                                          presorted=P if dedup_window == 0
-                                          else 0)
-        else:
-            pool_d, pool_se = sorted_topk_plain(cat_d, cat_se, P)
-        pool_se = torch.where(pool_d < BIG_THRESH, pool_se, -2)
+            # ---- merge: exact top-P of pool ∪ new ----
+            cat_d = torch.cat([pool_d, d_new.to(torch.bfloat16)], 1)
+            cat_se = torch.cat([pool_se, cand * 2], 1)
+            if merge_kernel and P <= MAX_TOPK:
+                pool_d, pool_se = sorted_topk(cat_d, cat_se, P,
+                                              presorted=P if dedup_window == 0
+                                              else 0)
+            else:
+                pool_d, pool_se = sorted_topk_plain(cat_d, cat_se, P)
+            pool_se = torch.where(pool_d < BIG_THRESH, pool_se, -2)
 
-        # ---- duplicate kill: copies of a slot sit adjacent (equal
-        # scores); propagate the expanded flag among equal ids in both
-        # directions, then void the later copies ----
-        if dedup_window > 0:
-            sid = pool_se >> 1
-            prop = pool_se & 1
-            dup = torch.zeros_like(sid, dtype=torch.bool)
-            for w in range(1, min(dedup_window, P - 1) + 1):
-                s_r, e_r = _shift(sid, w, -3), _shift(prop, w, 0)
-                s_l, e_l = _shift(sid, -w, -3), _shift(prop, -w, 0)
-                eq_r = sid == s_r
-                prop = prop | (eq_r.int() & e_r) | ((sid == s_l).int() & e_l)
-                dup |= eq_r
-            pool_se = torch.where(dup, -1, (sid * 2) | prop)
-            pool_d = torch.where(dup, big16, pool_d)
+            # ---- duplicate kill: copies of a slot sit adjacent (equal
+            # scores); propagate the expanded flag among equal ids in both
+            # directions, then void the later copies ----
+            if dedup_window > 0:
+                sid = pool_se >> 1
+                prop = pool_se & 1
+                dup = torch.zeros_like(sid, dtype=torch.bool)
+                for w in range(1, min(dedup_window, P - 1) + 1):
+                    s_r, e_r = _shift(sid, w, -3), _shift(prop, w, 0)
+                    s_l, e_l = _shift(sid, -w, -3), _shift(prop, -w, 0)
+                    eq_r = sid == s_r
+                    prop = (prop | (eq_r.int() & e_r)
+                            | ((sid == s_l).int() & e_l))
+                    dup |= eq_r
+                pool_se = torch.where(dup, -1, (sid * 2) | prop)
+                pool_d = torch.where(dup, big16, pool_d)
         return pool_d, pool_se, res_d, res_s
 
     carry = (pool_d, pool_se, res_d, res_s)
@@ -425,23 +434,24 @@ def wide_search(
     pool_d, pool_se, res_d, res_s = carry
 
     # ---- exact rerank of the R best pool entries ----
-    if res_mask is not None:
-        rs = res_s
-    else:
-        rpos = torch.topk(pool_d.float(), R, dim=1, largest=False,
-                          sorted=True).indices
-        rs = torch.gather(pool_se >> 1, 1, rpos)
-    r_safe = rs.clamp_min(0).long()
-    ok = (rs >= 0) & ~later_copies(rs) & has_emb[r_safe]
-    if res_mask is not None:
-        ok &= res_mask[r_safe]
-    # difference form: the expansion's cancellation would break the exact
-    # self-match contract
-    diff = emb[r_safe] - queries[:, None, :]
-    d_ex = torch.where(ok, (diff * diff).sum(-1), BIG)
-    out_d, pos = torch.topk(d_ex, k, dim=1, largest=False, sorted=True)
-    out_s = torch.where(out_d < BIG_THRESH, torch.gather(rs, 1, pos), -1)
-    return out_d, out_s
+    with span("vdb.wide.rerank", device=dev):
+        if res_mask is not None:
+            rs = res_s
+        else:
+            rpos = torch.topk(pool_d.float(), R, dim=1, largest=False,
+                              sorted=True).indices
+            rs = torch.gather(pool_se >> 1, 1, rpos)
+        r_safe = rs.clamp_min(0).long()
+        ok = (rs >= 0) & ~later_copies(rs) & has_emb[r_safe]
+        if res_mask is not None:
+            ok &= res_mask[r_safe]
+        # difference form: the expansion's cancellation would break the
+        # exact self-match contract
+        diff = emb[r_safe] - queries[:, None, :]
+        d_ex = torch.where(ok, (diff * diff).sum(-1), BIG)
+        out_d, pos = torch.topk(d_ex, k, dim=1, largest=False, sorted=True)
+        out_s = torch.where(out_d < BIG_THRESH, torch.gather(rs, 1, pos), -1)
+        return out_d, out_s
 
 
 def beam_search(

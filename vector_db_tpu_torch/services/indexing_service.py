@@ -39,6 +39,7 @@ from __future__ import annotations
 import logging
 import random
 import threading
+import time
 from pathlib import Path
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -47,6 +48,7 @@ import numpy as np
 from vector_db_tpu_torch.config import load_config
 from vector_db_tpu_torch.device import config_device
 from vector_db_tpu_torch.index.hnsw import HNSW
+from vector_db_tpu_torch.observability import count, span
 from vector_db_tpu_torch.storage import MMapNodeStorage, NodeStorage
 from vector_db_tpu_torch.types import Node
 
@@ -520,49 +522,79 @@ class IndexingService:
             filter_ids=kwargs.get("filter_ids"))
 
     def search_batch(self, queries: np.ndarray, k: int, **kwargs: Any):
+        with span("vdb.search_batch", batch=len(queries), k=k) as sp:
+            t0 = time.perf_counter_ns()
+            with self._lock:
+                count("service.lock_wait_ns", time.perf_counter_ns() - t0)
+                return self._search_batch_locked(sp, queries, k, kwargs)
+
+    def _routed(self, sp, route: str, queries) -> None:
+        """Name the request's route on its span and in the counters."""
+        sp.set(route=route)
+        count(f"search.requests.{route}")
+        count(f"search.queries.{route}", len(queries))
+
+    def _search_batch_locked(self, sp, queries: np.ndarray, k: int,
+                             kwargs: dict):
         n_probe = kwargs.pop("n_probe", None)
-        with self._lock:
-            if self.index_type == "ivf":
-                if self._autotune_ready(kwargs):
-                    return self._autotune.route(
-                        self, np.asarray(queries, np.float32), k,
-                        kwargs.get("target_recall"))
-                n_probe = int(n_probe or 10)
-                n_probe = max(1, min(n_probe, self.index.k))
-                # filters implement tenancy/ACL — forward them (mirrors
-                # _ivf_search; a dropped filter silently leaks excluded
-                # docs)
-                use_rp = self._maybe_enable_rp()
-                use_pq = (not use_rp
-                          and self._maybe_enable_pq(kwargs.get("pq_chunks")))
-                return self.index.search_batch(
-                    queries, n_probe=n_probe, top_k=k,
-                    filter_ids=kwargs.get("filter_ids"), pq=use_pq,
-                    rp=use_rp, adc=self._pq_adc,
-                )
-            if self.index_type == "flat":
-                # exact search has no ef/beam knobs
-                return self.index.search_batch(
-                    queries, k, filter_ids=kwargs.get("filter_ids")
-                )
-            if self.index_type == "sharded-hnsw":
-                return self._sharded_search(queries, k, kwargs)
+        if self.index_type == "ivf":
             if self._autotune_ready(kwargs):
+                self._routed(sp, "ivf.autotune", queries)
                 return self._autotune.route(
                     self, np.asarray(queries, np.float32), k,
-                    kwargs.get("target_recall"),
-                    filter_ids=kwargs.get("filter_ids"))
-            if (self._scan_batch_threshold
-                    and len(queries) >= self._scan_batch_threshold
-                    and self.index.size >= self._wide_min_size):
-                # batch-throughput mode: the bf16 scan over the same table
-                return self.index.search_batch_scan(
-                    queries, k, filter_ids=kwargs.get("filter_ids"))
-            if self._maybe_enable_wide():
-                ef = int(kwargs.get("ef", 50) or 50)
-                return self._wide_dispatch(queries, k, ef,
-                                           kwargs.get("filter_ids"))
-            return self.index.search_batch(queries, k, **kwargs)
+                    kwargs.get("target_recall"))
+            n_probe = int(n_probe or 10)
+            n_probe = max(1, min(n_probe, self.index.k))
+            # filters implement tenancy/ACL — forward them (mirrors
+            # _ivf_search; a dropped filter silently leaks excluded docs)
+            use_rp = self._maybe_enable_rp()
+            use_pq = (not use_rp
+                      and self._maybe_enable_pq(kwargs.get("pq_chunks")))
+            if use_rp:
+                route = "ivf.rp"
+            elif use_pq:    # at n_probe >= k the index scans every cell
+                route = "ivf.pq_scan" if n_probe >= self.index.k else "ivf.pq"
+            else:
+                route = "ivf"
+            self._routed(sp, route, queries)
+            return self.index.search_batch(
+                queries, n_probe=n_probe, top_k=k,
+                filter_ids=kwargs.get("filter_ids"), pq=use_pq,
+                rp=use_rp, adc=self._pq_adc,
+            )
+        if self.index_type == "flat":
+            # exact search has no ef/beam knobs
+            self._routed(sp, "flat", queries)
+            return self.index.search_batch(
+                queries, k, filter_ids=kwargs.get("filter_ids")
+            )
+        if self.index_type == "sharded-hnsw":
+            self._routed(sp, "sharded", queries)
+            return self._sharded_search(queries, k, kwargs)
+        if self._autotune_ready(kwargs):
+            self._routed(sp, "hnsw.autotune", queries)
+            return self._autotune.route(
+                self, np.asarray(queries, np.float32), k,
+                kwargs.get("target_recall"),
+                filter_ids=kwargs.get("filter_ids"))
+        if (self._scan_batch_threshold
+                and len(queries) >= self._scan_batch_threshold
+                and self.index.size >= self._wide_min_size):
+            # batch-throughput mode: the bf16 scan over the same table
+            self._routed(sp, "hnsw.scan", queries)
+            return self.index.search_batch_scan(
+                queries, k, filter_ids=kwargs.get("filter_ids"))
+        if self._maybe_enable_wide():
+            ef = int(kwargs.get("ef", 50) or 50)
+            filter_ids = kwargs.get("filter_ids")
+            if filter_ids is not None and self._filtered_engine == "scan":
+                route = "hnsw.scan"
+            else:
+                route = "hnsw.beam" if self._wide_mode == "beam" else "hnsw.wide"
+            self._routed(sp, route, queries)
+            return self._wide_dispatch(queries, k, ef, filter_ids)
+        self._routed(sp, "hnsw", queries)
+        return self.index.search_batch(queries, k, **kwargs)
 
     def _wide_dispatch(self, queries: np.ndarray, k: int, ef: int,
                        filter_ids=None):
