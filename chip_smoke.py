@@ -15,6 +15,10 @@ Phases, one line or more each; any failure raises and the exit code is not 0:
    the cut, one key, +-0.0, BIG sentinels at the cut, the widest row a CTA
    holds) and the main path's shapes, with both medians and torch.matmul
    of the same product (l2_topk in each dtype, the block scans in bf16);
+   mirror_scores bit-equal to its plain version at dpa 128, 136, 392, 776
+   and 129, and timed at B 1,024, K 7,168 over 1M rows at dpa 128 (the
+   wide cell's step, the kernel's dpa-128 path) and at dpa 136 (phase 5's
+   wide steps, its generic path);
 3. the main path at real size: FlatIndex over a 1M x 768 embedding-like
    corpus in all four precisions (insert, delete, filter, search_batch at
    B = 1000, k = 10), checked against float64 ground truth and the port's
@@ -185,6 +189,8 @@ N_PROBE = 16
 FETCH = 512
 ADC_B = 128             # adc_topk's main-path shape: B queries, k = 100
 ADC_K = 100
+MS_B = 1024             # mirror_scores at a wide step: B queries,
+MS_K = 224 * 32         # K = F x W candidates each
 RECALL_FLOOR = 0.95     # the JAX package recorded 0.977 here
 # phase 4's residual projection and full scans (BENCH_SIFT.json: the JAX
 # package's RP read 0.9485 / 0.9678 / 0.9874 at n_probe 8 / 32 / all, at
@@ -209,6 +215,8 @@ INSERT_BATCH = 1024
 SELF_CHECK = 1000       # inserted rows that must be their own top-1
 N_DELETE = 100
 WIDE_DIMS = 128
+MS_WIDTHS = {"mirror_scores": 128,   # record: dpa (the wide cell's dims 120)
+             "mirror_scores_dpa136": WIDE_DIMS + 8}   # phase 5's
 WIDE_SEEDS = 16384
 WIDE_EF = 1280          # bucketed to the pool width P = 2048
 WIDE_F = 224
@@ -961,6 +969,7 @@ def phase_kernels(torch, dev, kernels):
         f"B=128's time a query")
     del c8
     del lut, codes, valid, got, want
+    mirror_scores_checks(torch, dev, gen, kernels)
     for name in err:
         kernels[name]["max_abs_err"] = max(err[name],
                                            kernels[name].get("max_abs_err",
@@ -969,6 +978,57 @@ def phase_kernels(torch, dev, kernels):
         kernels["l2_topk_bf16"]["max_abs_err"], err["l2_topk"])
     log(f"phase 2 ok: kernels agree with their plain versions, "
         f"max abs err {err}")
+
+
+def mirror_scores_checks(torch, dev, gen, kernels) -> None:
+    """Phase 2's mirror_scores: bit-equal to its plain version at the
+    widths the port makes (and odd ones, B = 1, K off the kernel's tile),
+    then at a wide step, B 1,024 and K = F 224 x W 32 ids over a 1M-row
+    mirror, -1 ids among them, timed at each of MS_WIDTHS: dpa 128 (the
+    wide cell's, the kernel's dpa-128 path) and phase 5's dpa 136 (its
+    generic path). Each time is set against two byte counts: every
+    gathered row read from HBM once (the bound, the rate of the gathered
+    bytes), and each distinct row, the ids and the scores once (the
+    floor, what a kernel reading repeated rows from L2 could reach)."""
+    from vector_db_tpu_torch.ops.cuda.mirror_scores import (
+        mirror_scores, mirror_scores_plain)
+
+    def case(n, dpa, b, k):
+        aug = (torch.randn(n, dpa, generator=gen, device=dev) * 0.1).to(
+            torch.bfloat16)
+        ids = torch.randint(-1, n, (b, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        qa = torch.randn(b, dpa, generator=gen, device=dev).to(
+            torch.bfloat16).float()
+        if not torch.equal(mirror_scores(aug, ids, qa),
+                           mirror_scores_plain(aug, ids, qa)):
+            raise AssertionError(f"mirror_scores n={n} dpa={dpa} b={b} "
+                                 f"k={k}: not bit-equal to the plain version")
+        return aug, ids, qa
+
+    for shape in ((4000, 128, 1, 1000), (20000, 392, 16, 1000),
+                  (20000, 776, 16, 1000), (3000, 129, 7, 300)):
+        case(*shape)
+    for name, dpa in MS_WIDTHS.items():
+        aug, ids, qa = case(N_MAIN, dpa, MS_B, MS_K)
+        ms = cuda_ms(torch, lambda: mirror_scores(aug, ids, qa))
+        plain_ms = cuda_ms(torch, lambda: mirror_scores_plain(aug, ids, qa),
+                           reps=3)
+        distinct = int(torch.unique(ids.clamp_min(0)).numel())
+        rec = kernels[name]
+        rec.update(ms=ms, plain_ms=plain_ms, max_abs_err=0.0)
+        # reads: each gathered bf16 row and its int32 id; writes: the f32
+        # score
+        set_bound(rec, MS_B * MS_K * (dpa * 2 + 8), 2.0 * MS_B * MS_K * dpa,
+                  F32_FLOPS)
+        floor_ms = (distinct * dpa * 2 + MS_B * MS_K * 8) / HBM_BYTES_S * 1e3
+        log(f"{name} dpa {dpa}, N={N_MAIN} B={MS_B} K={MS_K}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bit-equal; bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, every gathered "
+            f"row from HBM), {rec['bound_ms'] / ms:.1%} of the bound; floor "
+            f"{floor_ms:.4f} ms ({distinct} distinct rows, ids and scores "
+            f"once), {floor_ms / ms:.1%} of the floor")
+        del aug, ids, qa
 
 
 def phase_main_path(torch, kernels):
@@ -1854,6 +1914,7 @@ def phase_hnsw(torch, kernels):
     from vector_db_tpu_torch import HNSW, embedding_like
     from vector_db_tpu_torch.index import wide_beam
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.cuda.mirror_scores import mirror_scores
     from vector_db_tpu_torch.ops.cuda.sorted_topk import (
         sorted_topk, sorted_topk_plain)
     from vector_db_tpu_torch.ops.exact import exact_search_tiled
@@ -1924,10 +1985,19 @@ def phase_hnsw(torch, kernels):
         torch, {name: (idx.search_batch if name == "classic"
                        else idx.search_batch_wide, kw)
                 for name, kw in modes.items()},
-        batches, queries, (sorted_topk,))
+        batches, queries, (sorted_topk, mirror_scores))
     launches = {name: c["sorted_topk"] for name, c in launched.items()}
+    mirror = {name: c["mirror_scores"] for name, c in launched.items()}
     calls = 1 + len(batches)
-    log(f"sorted_topk launches per mode: {launches} over {calls} calls each")
+    log(f"sorted_topk launches per mode: {launches}, mirror_scores (dpa "
+        f"{WIDE_DIMS + 8}) {mirror}, over {calls} calls each")
+    if mirror["classic"] or any(mirror[n] != (WIDE_T + 1) * calls
+                                for n in ("wide", "wide_merge_kernel")):
+        raise AssertionError(f"mirror_scores: expected {WIDE_T + 1} "
+                             "launches per wide call (the seed and each "
+                             "step) and none in the classic search")
+    kernels["mirror_scores_dpa136"]["launches"] = (
+        mirror["wide"] + mirror["wide_merge_kernel"])
     sorted_row_ms = None
     for name, kw in modes.items():
         call = idx.search_batch if name == "classic" else idx.search_batch_wide
@@ -2090,15 +2160,18 @@ def uncounted():
     from vector_db_tpu_torch.ops.cuda.adc_probe import adc_probe_scores
     from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.cuda.mirror_scores import mirror_scores
     from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
 
     saved = (l2_topk.launches, l2_topk.launches_bf16, sorted_topk.launches,
-             adc_probe_scores.launches, adc_topk.launches)
+             adc_probe_scores.launches, adc_topk.launches,
+             mirror_scores.launches)
     try:
         yield
     finally:
         (l2_topk.launches, l2_topk.launches_bf16, sorted_topk.launches,
-         adc_probe_scores.launches, adc_topk.launches) = saved
+         adc_probe_scores.launches, adc_topk.launches,
+         mirror_scores.launches) = saved
 
 
 def captured(module, name, call):
@@ -2817,6 +2890,9 @@ def phase_services(torch, kernels, card):
             counts = _counts()
             _launched("services'", counts,
                       ("l2_topk", "l2_topk_bf16", "sorted_topk"))
+            # the services' wide mirror: dims 120, dpa 128
+            kernels.setdefault("mirror_scores", {})["launches"] = \
+                counts["mirror_scores"]
             say(f"launches of the services' own calls (ingest, restart, "
                 f"single inserts, deletes, searches through IndexingService;"
                 f" the reference scans, direct index calls and plain checks "
@@ -2878,11 +2954,13 @@ def _reset_counts():
     from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
     from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.cuda.mirror_scores import mirror_scores
     from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
 
     l2_topk.launches = l2_topk.launches_bf16 = 0
     sorted_topk.launches = adc_probe_scores.launches = adc_topk.launches = 0
     block_min_scan.launches = block_topm_scan.launches = 0
+    mirror_scores.launches = 0
 
 
 def _counts():
@@ -4447,6 +4525,16 @@ def main() -> int:
                         "source": "vector_db_tpu_torch/csrc/sorted_topk.cu",
                         "replaces":
                             "vector_db_tpu/ops/pallas/bitonic_merge.py:221"},
+        "mirror_scores": {"name": "mirror_scores", "route": "cuda",
+                          "source":
+                              "vector_db_tpu_torch/csrc/mirror_scores.cu",
+                          "replaces": "none (the JAX package's jnp.einsum, "
+                                      "vector_db_tpu/index/wide_beam.py:285)"},
+        "mirror_scores_dpa136": {
+            "name": "mirror_scores_dpa136", "route": "cuda",
+            "source": "vector_db_tpu_torch/csrc/mirror_scores.cu",
+            "replaces": "none (the JAX package's jnp.einsum, "
+                        "vector_db_tpu/index/wide_beam.py:285)"},
     }
     phase_kernels(torch, dev, kernels)
     torch.cuda.empty_cache()
@@ -4468,6 +4556,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     base = phase_services(torch, kernels, card)
+    if kernels["mirror_scores"]["launches"] <= 0:
+        raise AssertionError("mirror_scores: no launch on the services' "
+                             "wide path")
     t0 = time.perf_counter()
     phase_sharding(torch, kernels, card, base)
     del base

@@ -93,9 +93,11 @@ def test_phase_services_rehearsal(monkeypatch, capsys):
     # each path checks its own counts; the last, phase 7a's IVF-PQ service
     # with autotune, leaves its own
     assert adc_topk.launches > 0 and adc_probe_scores.launches > 0
-    # each kernel held against its plain version at the routes' inputs
+    # each kernel held against its plain version at the routes' inputs;
+    # mirror_scores' record takes the wide route's launches
     assert set(kernels) == {"l2_topk", "l2_topk_bf16", "sorted_topk",
-                            "adc_probe", "adc_topk"}
+                            "adc_probe", "adc_topk", "mirror_scores"}
+    assert set(kernels["mirror_scores"]) == {"launches"}
     for line in ("service scan route: l2_topk torch.bfloat16",
                  "service filtered route: l2_topk torch.bfloat16",
                  "insert scan level 0: l2_topk f32", "flat service: l2_topk",

@@ -28,6 +28,10 @@ from vector_db_tpu_torch.ops.cuda.adc_probe import (
 )
 from vector_db_tpu_torch.ops.cuda.adc_scan import adc_topk, adc_topk_plain
 from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk, l2_topk_plain
+from vector_db_tpu_torch.ops.cuda.mirror_scores import (
+    mirror_scores,
+    mirror_scores_plain,
+)
 from vector_db_tpu_torch.ops.cuda.sorted_topk import (
     sorted_topk,
     sorted_topk_plain,
@@ -764,6 +768,104 @@ def test_sorted_topk_rejects_what_the_kernel_does_not_take(cuda):
         sorted_topk(d, v.cpu(), 10)
     with pytest.raises(ValueError, match="dtype"):
         sorted_topk(d.half(), v, 10)
+
+
+def _mirror_inputs(rng, dev, nrows, dpa, b, k, bf16_queries=True):
+    """A bf16 mirror, int32 ids with -1 among them, and f32 queries (bf16
+    values, as the wide beam makes them, or arbitrary f32)."""
+    aug = (torch.randn((nrows, dpa), generator=torch.Generator(
+        device=dev).manual_seed(int(rng.integers(1 << 30))), device=dev)
+        * 0.1).to(torch.bfloat16)
+    ids = torch.from_numpy(rng.integers(-1, nrows, (b, k)).astype(
+        np.int32)).to(dev)
+    qa = _tensor(rng, (b, dpa), dev)
+    if bf16_queries:
+        qa = qa.to(torch.bfloat16).float()
+    return aug, ids, qa
+
+
+@pytest.mark.parametrize("nrows,dpa,b,k,bf16_queries", [
+    (1 << 20, 128, 1024, 7168, True),   # the wide cell's step
+    (1 << 20, 128, 1, 1000, True),      # B = 1, K off the kernel's tile
+    (5000, 128, 33, 777, False),        # arbitrary f32 queries
+    (20000, 136, 64, 7168, True),       # chip_smoke's dims = 128
+    (20000, 392, 16, 1000, True),       # dims = None at d = 384
+    (20000, 776, 16, 1000, False),      # dims = None at d = 768
+    (3000, 129, 7, 300, False),         # odd widths
+    (3000, 9, 5, 70, True),
+    (3000, 1, 3, 40, False),
+])
+def test_mirror_scores_kernel_equals_plain(cuda, nrows, dpa, b, k,
+                                           bf16_queries):
+    rng = np.random.default_rng(dpa + b)
+    aug, ids, qa = _mirror_inputs(rng, cuda, nrows, dpa, b, k, bf16_queries)
+    before = mirror_scores.launches
+    got = mirror_scores(aug, ids, qa)
+    torch.cuda.synchronize()
+    assert mirror_scores.launches == before + 1
+    assert torch.equal(got, mirror_scores_plain(aug, ids, qa))
+
+
+def test_mirror_scores_kernel_seed_shape(cuda):
+    """The seed scoring: one set of 4,096 ids broadcast over the batch."""
+    rng = np.random.default_rng(11)
+    aug, _, qa = _mirror_inputs(rng, cuda, 1 << 20, 128, 1024, 1)
+    seeds = torch.from_numpy(rng.integers(0, 1 << 20, 4096).astype(
+        np.int32)).to(cuda)
+    seeds[-5:] = -1
+    ids = seeds[None, :].expand(1024, 4096)   # row stride 0, not copied
+    before = mirror_scores.launches
+    got = mirror_scores(aug, ids, qa)
+    assert mirror_scores.launches == before + 1
+    assert torch.equal(got, mirror_scores_plain(aug, ids.contiguous(), qa))
+    assert torch.equal(got[:, :1], mirror_scores(aug, ids[:, :1], qa))
+
+
+def test_mirror_scores_kernel_unaligned_tables(cuda):
+    """Tables off the 16-byte vector alignment take the generic path at
+    dpa = 128: the same bits."""
+    rng = np.random.default_rng(12)
+    aug, ids, qa = _mirror_inputs(rng, cuda, 4000, 128, 9, 500)
+    flat = torch.empty(qa.numel() + 1, device=cuda)
+    qa_off = flat[1:].view(qa.shape)
+    qa_off.copy_(qa)
+    assert qa_off.data_ptr() % 16
+    assert torch.equal(mirror_scores(aug, ids, qa_off),
+                       mirror_scores(aug, ids, qa))
+
+
+@pytest.mark.parametrize("dpa", [128, 136])
+def test_mirror_scores_kernel_is_bitwise_shape_independent(cuda, dpa):
+    """One row scored alone, in chunks and in the full batch: the same
+    bits, and the CPU's."""
+    rng = np.random.default_rng(13)
+    aug, ids, qa = _mirror_inputs(rng, cuda, 5000, dpa, 8, 1100, False)
+    whole = mirror_scores(aug, ids, qa)
+    # column slices: rows 1,100 ids apart, read in place
+    chunked = torch.cat([mirror_scores(aug, ids[:, s:s + 300], qa)
+                         for s in range(0, 1100, 300)], 1)
+    single = torch.cat([mirror_scores(aug, ids[:, j:j + 1], qa)
+                        for j in range(0, 1100, 97)], 1)
+    rows = torch.cat([mirror_scores(aug, ids[i:i + 1], qa[i:i + 1])
+                      for i in range(8)], 0)
+    assert torch.equal(whole, chunked) and torch.equal(whole, rows)
+    assert torch.equal(whole[:, ::97], single)
+    assert torch.equal(whole.cpu(), mirror_scores(aug.cpu(), ids.cpu(),
+                                                  qa.cpu()))
+
+
+def test_mirror_scores_rejects_what_the_kernel_does_not_take(cuda):
+    aug = torch.zeros((100, 128), dtype=torch.bfloat16, device=cuda)
+    ids = torch.zeros((2, 10), dtype=torch.int32, device=cuda)
+    qa = torch.zeros((2, 128), device=cuda)
+    with pytest.raises(ValueError, match="cpu"):
+        mirror_scores(aug, ids.cpu(), qa)
+    with pytest.raises(ValueError, match="dtype"):
+        mirror_scores(aug, ids.long(), qa)
+    with pytest.raises(ValueError, match="contiguous"):
+        mirror_scores(aug, ids.T.contiguous().T, qa)
+    empty = mirror_scores(aug, ids[:, :0].contiguous(), qa)
+    assert empty.shape == (2, 0)
 
 
 def test_hnsw_on_cuda_matches_cpu(cuda):

@@ -49,6 +49,8 @@ _SIGNATURES = {
     # keys, is_bf16, vals, B, n, slice_w, topk, out_keys, out_vals, out_w,
     # stream
     "vdb_sorted_topk": [_P, _I, _P, _I, _L, _I, _I, _P, _P, _L, _P],
+    # aug, n, dpa, idx, idx_stride, qa, B, K, out, stream
+    "vdb_mirror_scores": [_P, _L, _I, _P, _L, _P, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

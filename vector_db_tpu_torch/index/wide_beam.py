@@ -15,10 +15,15 @@ Differences from the JAX function, all on selection only:
   hand-written ``sorted_topk`` kernel (``ops/cuda/sorted_topk.py``) while
   P <= 8192; otherwise, and above that, its plain version (a stable
   ``torch.sort``), which gives the same pool;
-- a mirror row's score is a product and a pairwise sum in a fixed order
-  (:func:`_fixed_sum`, elementwise f32 operations only), so one row scored
-  in any step, chunk or batch shape gets a bit-identical score: the window
-  dedup relies on duplicate copies landing adjacent;
+- the mirror scoring (:func:`_aug_scores`) is the hand-written
+  ``mirror_scores`` kernel (``ops/cuda/mirror_scores.py``,
+  ``csrc/mirror_scores.cu``) on the card, one launch a call that reads each
+  gathered bf16 row once, where JAX runs an XLA-fused ``jnp.einsum``; a
+  row's score is a product and a pairwise sum in a fixed order (f32
+  operations with no fused multiply-add, the plain version's
+  ``_fixed_sum`` on the CPU), so one row scored in any step, chunk or batch
+  shape, on either device, gets a bit-identical score: the window dedup
+  relies on duplicate copies landing adjacent;
 - the pool-membership masks (``seen_mask``, the pop's expanded marks) are
   sorted-membership tests (``searchsorted``) instead of [B, K, P] and
   [B, P, F] broadcast compares, which would be 15 and 0.47 G elements per
@@ -47,6 +52,10 @@ import torch
 from vector_db_tpu_torch.device import require_f32_matmul
 from vector_db_tpu_torch.index.pq import _decode
 from vector_db_tpu_torch.observability import span
+from vector_db_tpu_torch.ops.cuda.mirror_scores import (
+    SCORE_ELEMS,
+    mirror_scores,
+)
 from vector_db_tpu_torch.ops.cuda.sorted_topk import (
     MAX_TOPK,
     sorted_topk,
@@ -56,7 +65,6 @@ from vector_db_tpu_torch.ops.distance import BIG, BIG_THRESH, squared_norms
 from vector_db_tpu_torch.ops.topk import later_copies, smallest_stable
 
 _ROWS = 65536            # table rows per pass of the mirror build
-_SCORE_ELEMS = 1 << 28   # bound on one scoring chunk's [B, rows, dpa] f32
 _LANES = 128             # the inline table's row width is a multiple of it
 
 
@@ -173,11 +181,11 @@ def _inline_scores(inline_tabs, frontier: torch.Tensor, q_i8: torch.Tensor,
     q_i8)`` of every frontier node's inline neighbors (the frontier holds
     -1 where invalid: those rows read slot 0, callers mask them). The int8
     dot is exact in f32 (module docstring); queries run in chunks that keep
-    the widened [b, F, W, dp] block within ``_SCORE_ELEMS``."""
+    the widened [b, F, W, dp] block within ``SCORE_ELEMS``."""
     nbr_i8, nbr_scale, nbr_xsq = inline_tabs
     b, f = frontier.shape
     w, dp = nbr_i8.shape[1:]
-    step = max(1, _SCORE_ELEMS // max(1, f * w * dp))
+    step = max(1, SCORE_ELEMS // max(1, f * w * dp))
     out = torch.empty((b, f, w), device=q_i8.device)
     for s in range(0, b, step):
         fs = frontier[s:s + step].clamp_min(0).long()
@@ -204,37 +212,15 @@ def aug_queries(
     return qa
 
 
-def _fixed_sum(p: torch.Tensor) -> torch.Tensor:
-    """Sum over the last dim by halving, in an order fixed by the width
-    alone: elementwise f32 adds, so every row's result is the same bits in
-    any batch shape and on any device."""
-    while p.shape[-1] > 1:
-        w = p.shape[-1]
-        h = w // 2
-        s = p[..., :h] + p[..., h:2 * h]
-        if w % 2:
-            s[..., :1] += p[..., 2 * h:]
-        p = s
-    return p[..., 0]
-
-
 def _aug_scores(aug: torch.Tensor, idx: torch.Tensor, qa: torch.Tensor,
                 chunks: int = 1) -> torch.Tensor:
-    """Mirror scores f32[B, K] of rows ``aug[idx]`` (idx [B, K]; -1 scores
-    row 0, callers mask it) against ``qa`` f32[B, dpa] (the bf16 query's
-    values): bf16 x bf16 products are exact in f32, summed by
-    :func:`_fixed_sum`. The candidate axis runs in at least ``chunks``
-    pieces, each within ``_SCORE_ELEMS`` f32 elements."""
-    b, k = idx.shape
-    dpa = aug.shape[1]
-    step = max(1, min(-(-k // max(1, chunks)),
-                      _SCORE_ELEMS // max(1, b * dpa)))
-    out = torch.empty((b, k), dtype=torch.float32, device=aug.device)
-    for s in range(0, k, step):
-        rows = aug[idx[:, s:s + step].clamp_min(0).long()].float()
-        rows.mul_(qa[:, None, :])
-        out[:, s:s + step] = _fixed_sum(rows)
-    return out
+    """Mirror scores f32[B, K] of rows ``aug[idx]`` (idx int32 [B, K]; -1
+    scores row 0, callers mask it) against ``qa`` f32[B, dpa] (the bf16
+    query's values): :func:`ops.cuda.mirror_scores.mirror_scores`, the
+    kernel on the card and its plain version on the CPU, bit-identical.
+    ``chunks`` bounds nothing: the kernel takes the whole call in one
+    launch, and the plain version sizes its pieces by ``SCORE_ELEMS``."""
+    return mirror_scores(aug, idx, qa)
 
 
 def _member(x: torch.Tensor, sets: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ def launch_counts() -> dict:
     from vector_db_tpu_torch.ops.cuda.block_min import block_min_scan
     from vector_db_tpu_torch.ops.cuda.block_topm import block_topm_scan
     from vector_db_tpu_torch.ops.cuda.l2_topk import l2_topk
+    from vector_db_tpu_torch.ops.cuda.mirror_scores import mirror_scores
     from vector_db_tpu_torch.ops.cuda.sorted_topk import sorted_topk
 
     return {"l2_topk": l2_topk.launches - l2_topk.launches_bf16,
@@ -37,16 +38,25 @@ def launch_counts() -> dict:
             "block_topm": block_topm_scan.launches,
             "adc_probe": adc_probe_scores.launches,
             "adc_topk": adc_topk.launches,
-            "sorted_topk": sorted_topk.launches}
+            "sorted_topk": sorted_topk.launches,
+            "mirror_scores": mirror_scores.launches}
+
 
 def check_cuda_args(what: str, **args) -> None:
     """Raise unless every ``name=(tensor, dtype(s), shape)`` is a contiguous
     CUDA tensor of that dtype and shape on one device."""
+    for name, (t, _, _) in args.items():
+        if not t.is_cuda:
+            raise ValueError(f"{what}: {name} is on {t.device}, not CUDA")
+    check_args(what, **args)
+
+
+def check_args(what: str, **args) -> None:
+    """Raise unless every ``name=(tensor, dtype(s), shape)`` is a contiguous
+    tensor of that dtype and shape, all on one device."""
     device = None
     for name, (t, dtypes, shape) in args.items():
         dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
-        if not t.is_cuda:
-            raise ValueError(f"{what}: {name} is on {t.device}, not CUDA")
         if device is None:
             device = t.device
         elif t.device != device:
